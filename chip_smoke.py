@@ -6,30 +6,48 @@
 Phases, each printed as one JSON object on its own line:
 
   1. device   the card (``nvidia-smi`` name and power limit); TF32 off.
-  2. build    both CUDA kernels from ``src/repro_torch/kernels/csrc``,
-              one ``nvcc`` per source, in parallel.
+  2. build    every CUDA kernel of ``src/repro_torch/kernels/csrc``, one
+              ``nvcc`` per source, in parallel.
   3. kernels  each kernel against its plain PyTorch version on the card, in
-              float32 and bf16 at the main path's shapes (tolerance 2e-3 /
+              float32 and bf16 at the main paths' shapes (tolerance 2e-3 /
               2e-2), then times (CUDA events, median, L2 flushed before
               every launch) beside the least time the card could take and
-              one PyTorch library call computing the same function.
-  4. prefill  full-width qwen3-0.6b in bf16 (random weights from a seeded
-              ``torch.Generator``): ``make_prefill`` on B=1, T=1024 through
-              K2, held against the same forward with plain attention.
-  5. serve    a full-width ``ServeEngine`` on ``Cluster(4, "drust")`` with
-              the int8 weight wire serves 8 requests (half share a
-              1024-token prefix page); K1 must launch n_layers times per
-              tick; a few decode steps are held against the plain path.
+              one PyTorch library call computing the same function, where
+              there is one.
+  4. three models at their published widths and depths, in bf16, random
+     weights from a seeded ``torch.Generator``, one after the other (each
+     freed before the next):
+       qwen3-0.6b         prefill B=1, T=1024 (K2)
+       rwkv6-3b           prefill B=1, T=1024 (K4)
+       recurrentgemma-9b  prefill B=1, T=4096 > its window of 2048 (K2
+                          with the window, K5)
+     For each, ``make_prefill`` is held against the same forward on the
+     plain path (``attn_impl="plain"``: plain attention and recurrences);
+     then a ``ServeEngine`` on ``Cluster(4, "drust")`` with the int8 weight
+     wire serves 8 requests (half share a prefix page), every tick must
+     launch each kernel of its decode path once per layer that runs it
+     (K1; K4; K1 and K5), and three decode steps from the served cache are
+     held against the plain path.  qwen3-0.6b is held in bf16 (relative L2
+     5e-2).  The recurrent models are held in float32, with the same
+     weights upcast (relative L2 2e-3): in bf16 their logits move by
+     several percent for any change of summation order in one layer (a
+     1e-6 relative change of the recurrence's output, in float32, flips
+     bf16 roundings that compound over 32 layers), so a bf16 comparison
+     cannot tell a right kernel from a wrong one; the bf16 numbers are
+     printed beside it.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
-...}``.  Any failed check raises, so the script exits non-zero and prints
-no result; so does a machine without a card, or a directory that holds
-this file and nothing else of the repository.  It imports nothing of JAX.
+Then one line ``{"kernels": [...]}`` with one entry per kernel and shape,
+its launches counted on the path that runs it, and, last, ``{"ok": true,
+"device": ...}``.  Any failed check raises, so the script exits non-zero
+and prints no result; so does a machine without a card, or a directory
+that holds this file and nothing else of the repository.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -45,10 +63,23 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOLS = {"float32": 2e-3, "bfloat16": 2e-2}
-# Prefill / decode logits, kernel path vs plain-attention path, both bf16:
-# the two paths round attention to bf16 at different points in each of 28
-# layers, so the logits agree only to a few bf16 ulps in relative L2.
-LOGIT_REL_TOL = 5e-2
+# Prefill / decode logits, kernel path vs plain path, relative L2, by the
+# dtype they are compared in: in bf16 the two paths round attention to bf16
+# at different points in each of 28 layers, so the logits agree only to a
+# few bf16 ulps; in float32 only the summation order differs.
+LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+NO_LIBRARY = "no single PyTorch call computes it"
+
+# (model, prefill length, kernel launches per prefill / per decode tick,
+# the dtype the kernel path is held to the plain path in; see the module
+# docstring)
+MODELS = [
+    ("qwen3_0_6b", 1024, {"flash_attention": 28}, {"decode_attention": 28},
+     "bfloat16"),
+    ("rwkv6_3b", 1024, {"rwkv_scan": 32}, {"rwkv_scan": 32}, "float32"),
+    ("recurrentgemma_9b", 4096, {"flash_attention": 12, "rglru_scan": 26},
+     {"decode_attention": 12, "rglru_scan": 26}, "float32"),
+]
 
 
 def emit(obj) -> None:
@@ -61,6 +92,7 @@ def need(cond: bool, msg: str) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -68,14 +100,8 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
 
-    from repro_torch import configs
-    from repro_torch.core import Cluster
-    from repro_torch.core.torchstate import OwnedState, tree_leaves
-    from repro_torch.kernels import _build, ops, ref
-    from repro_torch.models import decode_step, init_params
-    from repro_torch.serve import ServeEngine, make_prefill
+    from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
 
@@ -109,19 +135,47 @@ def main() -> int:
           "kernels": sorted(libs), "ptxas": ptxas})
 
     # 3. kernels -----------------------------------------------------------
+    rows = kernel_phase(torch, dev)
+
+    # 4. the models --------------------------------------------------------
+    for arch, T, per_prefill, per_tick, held_in in MODELS:
+        launches = model_phases(torch, dev, arch, T, per_prefill, per_tick,
+                                held_in)
+        for row in rows:
+            if row["path"] in launches:
+                row["launches"] = launches[row["path"]][row["name"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    keys = ("name", "route", "source", "replaces", "path", "shape",
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    need(all(r["launches"] > 0 for r in rows),
+         f"a kernel did not launch on its path: "
+         f"{[(r['name'], r['path']) for r in rows if not r['launches']]}")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+#  kernels against their plain versions, then times
+# ---------------------------------------------------------------------------
+def kernel_phase(torch, dev) -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.layers import attention
+
     gen = torch.Generator(dev).manual_seed(0)
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
 
-    def rand(*shape, dtype):
+    def rand(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    def err(a, b) -> float:
-        return float((a.float() - b.float()).abs().max())
-
-    def within(a, b, tol: float) -> bool:
-        """|a - b| <= tol + tol * |b| everywhere (as assert_close)."""
-        a, b = a.float(), b.float()
-        return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
     def timed(fn, reps: int = 15) -> float:
         """Median ms of one launch, L2 flushed before each."""
@@ -138,114 +192,237 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def bound(nbytes: float, flops: float, dtype: str):
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
-    B, H, Hkv, hd, S = 4, 16, 8, 128, 2048
-    k1_cases = []
-    for dt in ("float32", "bfloat16"):
-        dtype = getattr(torch, dt)
+    # -- inputs at the main paths' shapes -----------------------------------
+    def k1_inputs(B, H, Hkv, S, hd, dtype, lens):
         cache = rand(2, B, S, Hkv, hd, dtype=dtype)     # the model's layout
-        q = rand(B, H, hd, dtype=dtype)
-        k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
-        lens = torch.tensor([1, S, 777, 1500], dtype=torch.int32, device=dev)
-        got = ops.decode_attention(q, k, v, lens)
-        want = ref.decode_attention(q, k, v, lens)
-        e = err(got, want)
-        k1_cases.append({"dtype": dt, "lengths": lens.tolist(),
-                         "max_abs_err": e, "tol": TOLS[dt]})
-        need(within(got, want, TOLS[dt]), f"decode_attention {dt}: max err "
-             f"{e}")
+        return (rand(B, H, hd, dtype=dtype), cache[0].permute(0, 2, 1, 3),
+                cache[1].permute(0, 2, 1, 3),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
 
-    k2_cases = []
+    def k2_inputs(H, Hkv, T, S, hd, dtype):
+        return (rand(1, H, T, hd, dtype=dtype), rand(1, Hkv, S, hd,
+                                                     dtype=dtype),
+                rand(1, Hkv, S, hd, dtype=dtype))
+
+    def k4_inputs(B, H, T, M, dtype, with_s0):
+        # the model's layout: (B,T,H,M) projections seen as (B,H,T,M)
+        r, k, v = (rand(B, T, H, M, dtype=dtype).transpose(1, 2)
+                   for _ in range(3))
+        logw = (-0.105 * torch.sigmoid(rand(B, T, H, M))).transpose(1, 2)
+        u = rand(H, M) * 0.1
+        S0 = rand(B, H, M, M) * 0.5 if with_s0 else None
+        return r, k, v, logw, u, S0
+
+    def k5_inputs(B, T, D, a_val=None):
+        a = torch.sigmoid(rand(B, T, D))
+        if a_val is not None:
+            a = torch.full_like(a, a_val)
+        return a, rand(B, T, D)
+
+    # -- correctness: every case, float32 and bf16 --------------------------
+    checks = []
+
+    def check(name, case, got, want, tol):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max(_err(g, w) for g, w in zip(got, want))
+        ok = all(_within(g, w, tol) for g, w in zip(got, want))
+        checks.append({"kernel": name, **case, "max_abs_err": e, "tol": tol,
+                       "ok": ok})
+        need(ok, f"{name} {case}: max err {e}")
+
     for dt in ("float32", "bfloat16"):
-        dtype = getattr(torch, dt)
-        for T, Sk, causal in ((1024, 1024, True), (1024, 1024, False),
-                              (1000, 1000, True), (512, 1024, True)):
-            q = rand(1, 16, T, hd, dtype=dtype)
-            k = rand(1, 8, Sk, hd, dtype=dtype)
-            v = rand(1, 8, Sk, hd, dtype=dtype)
-            got = ops.flash_attention(q, k, v, causal=causal)
-            want = ref.attention(q, k, v, causal=causal)
-            e = err(got, want)
-            k2_cases.append({"dtype": dt, "T": T, "S": Sk, "causal": causal,
-                             "max_abs_err": e, "tol": TOLS[dt]})
-            need(within(got, want, TOLS[dt]), f"flash_attention {dt} T={T} "
-                 f"S={Sk} causal={causal}: max err {e}")
+        dtype, tol = getattr(torch, dt), TOLS[dt]
+        for B, H, Hkv, S, hd, lens in ((4, 16, 8, 2048, 128,
+                                        [1, 2048, 777, 1500]),
+                                       (4, 16, 1, 2048, 256,
+                                        [1, 2048, 64, 1999])):
+            ins = k1_inputs(B, H, Hkv, S, hd, dtype, lens)
+            check("decode_attention", {"dtype": dt, "H": H, "Hkv": Hkv,
+                                       "hd": hd, "lengths": lens},
+                  ops.decode_attention(*ins), ref.decode_attention(*ins), tol)
+        for H, Hkv, T, S, hd, causal, window in (
+                (16, 8, 1024, 1024, 128, True, 0),
+                (16, 8, 1024, 1024, 128, False, 0),
+                (16, 8, 1000, 1000, 128, True, 0),
+                (16, 8, 512, 1024, 128, True, 0),
+                (16, 1, 4096, 4096, 256, True, 2048)):
+            ins = k2_inputs(H, Hkv, T, S, hd, dtype)
+            case = {"dtype": dt, "Hkv": Hkv, "T": T, "S": S, "hd": hd,
+                    "causal": causal, "window": window}
+            got = ops.flash_attention(*ins, causal=causal, window=window)
+            check("flash_attention", case, got,
+                  ref.attention(*ins, causal=causal, window=window), tol)
+            if window:           # and the model's own plain attention
+                pos = torch.arange(T, device=dev)
+                want = attention(*(t.transpose(1, 2) for t in ins), pos,
+                                 pos, window=window).transpose(1, 2)
+                check("flash_attention", {**case, "vs": "layers.attention"},
+                      got, want, tol)
+        for B, T, with_s0 in ((1, 1024, False), (1, 1000, False),
+                              (4, 1, True)):
+            ins = k4_inputs(B, 40, T, 64, dtype, with_s0)
+            check("rwkv_scan", {"dtype": dt, "B": B, "H": 40, "T": T,
+                                "M": 64, "S0": with_s0},
+                  ops.rwkv_scan(*ins), ref.rwkv_scan(*ins), TOLS["float32"])
+    for B, T, D, a_val in ((1, 4096, 4096, None), (2, 1000, 4100, None),
+                           (4, 1, 4096, None), (1, 4096, 4096, 1e-4)):
+        ins = k5_inputs(B, T, D, a_val)
+        check("rglru_scan", {"dtype": "float32", "B": B, "T": T, "D": D,
+                             "a": a_val},
+              ops.rglru_scan(*ins), ref.rglru_scan(*ins), TOLS["float32"])
     torch.cuda.synchronize()
 
-    # times at the main path's shapes, bf16
-    import torch.nn.functional as F
+    # -- times at the main paths' shapes -------------------------------------
     bf = torch.bfloat16
-    cache = rand(2, B, S, Hkv, hd, dtype=bf)
-    q1 = rand(B, H, hd, dtype=bf)
-    k1, v1 = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
-    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
-    k1_out = ops.decode_attention(q1, k1, v1, lens)
-    k1_want = ref.decode_attention(q1, k1, v1, lens)
-    k1_err = err(k1_out, k1_want)
-    n_keys = int(lens.sum())
-    k1_bound = bound(2 * (2 * B * H * hd) + 2 * n_keys * Hkv * hd * 2 + 4 * B,
-                     4 * n_keys * H * hd, "bfloat16")
-    k1_row = {
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:62",
-        "shape": {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd,
-                  "lengths": "S", "dtype": "bfloat16"},
-        "max_abs_err": k1_err,
-        "ms": timed(lambda: ops.decode_attention(q1, k1, v1, lens)),
-        "plain_ms": timed(lambda: ref.decode_attention(q1, k1, v1, lens)),
-        "library_ms": timed(lambda: F.scaled_dot_product_attention(
-            q1[:, :, None], k1, v1, enable_gqa=True)),
-        "bound_ms": k1_bound[0], "bound_by": k1_bound[1]}
+    rows = []
 
-    T2 = 1024
-    q2 = rand(1, 16, T2, hd, dtype=bf)
-    k2 = rand(1, 8, T2, hd, dtype=bf)
-    v2 = rand(1, 8, T2, hd, dtype=bf)
-    k2_out = ops.flash_attention(q2, k2, v2)
-    k2_want = ref.attention(q2, k2, v2)
-    k2_err = err(k2_out, k2_want)
-    pairs = T2 * (T2 + 1) // 2                        # causal (i, j), T == S
-    k2_bound = bound(2 * (2 * 16 * T2 * hd + 2 * 8 * T2 * hd),
-                     4 * pairs * 16 * hd, "bfloat16")
-    k2_row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:68",
-        "shape": {"B": 1, "H": 16, "Hkv": 8, "T": T2, "S": T2, "hd": hd,
-                  "causal": True, "dtype": "bfloat16"},
-        "max_abs_err": k2_err,
-        "ms": timed(lambda: ops.flash_attention(q2, k2, v2)),
-        "plain_ms": timed(lambda: ref.attention(q2, k2, v2)),
-        "library_ms": timed(lambda: F.scaled_dot_product_attention(
-            q2, k2, v2, is_causal=True, enable_gqa=True)),
-        "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}
-    need(within(k1_out, k1_want, TOLS["bfloat16"])
-         and within(k2_out, k2_want, TOLS["bfloat16"]),
-         f"timed cases disagree: {k1_err}, {k2_err}")
-    emit({"phase": "kernels", "decode_attention": k1_cases,
-          "flash_attention": k2_cases,
-          "times": [{k: r[k] for k in ("name", "shape", "ms", "plain_ms",
-                                        "library_ms", "bound_ms",
-                                        "bound_by")}
-                    for r in (k1_row, k2_row)]})
-    del cache, flush_buf
+    def row(name, path, shape, ins, kernel, plain, library, nbytes, flops,
+            dtype, replaces):
+        got, want = kernel(*ins), plain(*ins)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max(_err(g, w) for g, w in zip(got, want))
+        need(all(_within(g, w, TOLS["bfloat16"]) for g, w in zip(got, want)),
+             f"timed {name} {shape}: max err {e}")
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "path": path, "shape": shape,
+            "launches": 0, "max_abs_err": e,
+            "ms": timed(lambda: kernel(*ins)),
+            "plain_ms": timed(lambda: plain(*ins)),
+            "library_ms": None if library is None
+            else timed(lambda: library(*ins)),
+            "library_note": NO_LIBRARY if library is None else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
-    # 4. prefill -----------------------------------------------------------
-    cfg = configs.get("qwen3_0_6b")
+    def sdpa_decode(q, k, v, lens):
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              enable_gqa=True)
+
+    K1 = "src/repro/kernels/decode_attention.py:62"
+    for path, (B, H, Hkv, S, hd) in (
+            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128)),
+            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256))):
+        ins = k1_inputs(B, H, Hkv, S, hd, bf, [S] * B)
+        n_keys = B * S
+        row("decode_attention", path,
+            {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd, "lengths": "S",
+             "dtype": "bfloat16"}, ins, ops.decode_attention,
+            ref.decode_attention, sdpa_decode,
+            2 * (2 * B * H * hd) + 2 * n_keys * Hkv * hd * 2 + 4 * B,
+            4 * n_keys * H * hd, "bfloat16", K1)
+
+    K2 = "src/repro/kernels/flash_attention.py:68"
+    for path, (H, Hkv, T, hd, window) in (
+            ("qwen3-0.6b prefill", (16, 8, 1024, 128, 0)),
+            ("recurrentgemma-9b prefill", (16, 1, 4096, 256, 2048))):
+        ins = k2_inputs(H, Hkv, T, T, hd, bf)
+        # (query, key) pairs under the causal mask and the window
+        pairs = sum(min(i + 1, window or T) for i in range(T))
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        if window:
+            mask &= ~mask.tril(-window)
+
+        def sdpa(q, k, v, mask=mask if window else None):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        row("flash_attention", path,
+            {"B": 1, "H": H, "Hkv": Hkv, "T": T, "S": T, "hd": hd,
+             "causal": True, "window": window, "dtype": "bfloat16"}, ins,
+            lambda q, k, v, w=window: ops.flash_attention(q, k, v, window=w),
+            lambda q, k, v, w=window: ref.attention(q, k, v, window=w),
+            sdpa, 2 * (2 * H * T * hd + 2 * Hkv * T * hd),
+            4 * pairs * H * hd, "bfloat16", K2)
+
+    for path, (B, T, with_s0) in (("rwkv6-3b prefill", (1, 1024, False)),
+                                  ("rwkv6-3b serve", (4, 1, True))):
+        H, M, C = 40, 64, 64
+        ins = k4_inputs(B, H, T, M, bf, with_s0)
+        # chunk form, valid rows only: strict-lower scores, scores @ v with
+        # the diagonal, q_in @ S and the state update, 2 flops per FMA
+        fmas = sum(n * (n - 1) // 2 * M + n * (n + 1) // 2 * M
+                   + 2 * n * M * M
+                   for n in (min(C, T - t0) for t0 in range(0, T, C)))
+        row("rwkv_scan", path,
+            {"B": B, "H": H, "T": T, "M": M, "S0": with_s0,
+             "dtype": "bfloat16"}, ins, ops.rwkv_scan, ref.rwkv_scan, None,
+            3 * B * H * T * M * 2 + 2 * B * H * T * M * 4 + H * M * 4
+            + (2 if with_s0 else 1) * B * H * M * M * 4,
+            2 * B * H * fmas, "bfloat16",
+            "src/repro/kernels/rwkv_scan.py:61")
+
+    for path, (B, T) in (("recurrentgemma-9b prefill", (1, 4096)),
+                         ("recurrentgemma-9b serve", (4, 1))):
+        D = 4096
+        row("rglru_scan", path, {"B": B, "T": T, "D": D,
+                                 "dtype": "float32"},
+            k5_inputs(B, T, D), ops.rglru_scan, ref.rglru_scan, None,
+            3 * B * T * D * 4, 2 * B * T * D, "float32",
+            "src/repro/kernels/rglru_scan.py:42")
+
+    emit({"phase": "kernels", "checks": checks,
+          "times": [{k: r[k] for k in ("name", "path", "shape", "ms",
+                                        "plain_ms", "library_ms",
+                                        "library_note", "bound_ms",
+                                        "bound_by")} for r in rows]})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+#  one model: prefill, serve, decode from the served cache
+# ---------------------------------------------------------------------------
+def model_phases(torch, dev, arch, T, per_prefill, per_tick,
+                 held_in) -> dict:
+    """Run one model's phases in bf16, holding the kernel path to the plain
+    path in ``held_in``; returns the kernel launches counted on each of its
+    paths, keyed ``"<name> prefill"`` / ``"<name> serve"``."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import Cluster
+    from repro_torch.core.torchstate import OwnedState, tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.transformer import clone_cache
+    from repro_torch.serve import ServeEngine, make_prefill
+
+    cfg = configs.get(arch)
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+    tol = LOGIT_REL_TOL[held_in]
+    bf16 = held_in == "bfloat16"
+
+    def held(fn):
+        """``fn()`` with the weights (and the caches it casts) in
+        ``held_in``; the weights are cast back to their own dtypes after."""
+        if bf16:
+            return fn()
+        _cast_tree(params, torch.float32)
+        try:
+            return fn()
+        finally:
+            _cast_tree(params, init_params(cfg, device="meta"))
+
+    def expect(counts, want, what):
+        full = {k: want.get(k, 0) for k in counts}
+        need(counts == full, f"{cfg.name} {what}: launches {counts}, want "
+             f"{full}")
+
+    # prefill ---------------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(dev).manual_seed(0),
                          device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     init_s = time.perf_counter() - t0
-    toks = torch.randint(0, cfg.vocab, (1, 1024), device=dev,
+    toks = torch.randint(0, cfg.vocab, (1, T), device=dev,
                          generator=torch.Generator(dev).manual_seed(1))
     prefill = make_prefill(cfg)
     with torch.no_grad():
@@ -256,26 +433,40 @@ def main() -> int:
         last, logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        k2_launches = ops.launch_counts()["flash_attention"]
+        prefill_counts = ops.launch_counts()
+        t0 = time.perf_counter()
         _, plain_logits = make_prefill(plain_cfg)(params, {"tokens": toks})
-    rel = _rel(logits, plain_logits)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    rel_bf16 = _rel(logits, plain_logits)
     agree = float((logits.argmax(-1) == plain_logits.argmax(-1))
                   .float().mean())
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits, plain_logits
+
+    def prefill_pair():
+        with torch.no_grad():
+            _, lk = prefill(params, {"tokens": toks})
+            _, lp = make_prefill(plain_cfg)(params, {"tokens": toks})
+        return _rel(lk, lp)
+    rel = rel_bf16 if bf16 else held(prefill_pair)
     emit({"phase": "prefill", "arch": cfg.name, "params": n_params,
           "init_s": init_s, "B": toks.shape[0], "T": toks.shape[1],
-          "prefill_ms": prefill_ms,
-          "flash_attention_launches": k2_launches,
-          "logits_shape": list(logits.shape),
-          "rel_l2_vs_plain": rel, "tol": LOGIT_REL_TOL,
-          "argmax_agreement": agree})
-    need(k2_launches == cfg.n_layers,
-         f"K2 launched {k2_launches} times, want {cfg.n_layers}")
-    need(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+          "prefill_ms": prefill_ms, "plain_prefill_ms": plain_ms,
+          "launches": prefill_counts, "logits_shape": shape,
+          "held_in": held_in, "rel_l2_vs_plain": rel, "tol": tol,
+          "bf16_rel_l2_vs_plain": rel_bf16,
+          "bf16_argmax_agreement": agree,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    expect(prefill_counts, per_prefill, "prefill")
+    need(finite, "non-finite logits")
     need(tuple(last.shape) == (1, cfg.vocab), f"last logits {last.shape}")
-    need(rel <= LOGIT_REL_TOL, f"prefill logits rel err {rel}")
-    del logits, plain_logits, last
+    need(rel <= tol, f"{cfg.name} prefill logits rel err {rel} ({held_in})")
+    del last
 
-    # 5. serve -------------------------------------------------------------
+    # serve -----------------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
     weights = OwnedState("weights", params)
     cl = Cluster(4, backend="drust")
     engine = ServeEngine(cfg, weights, slots=4, max_len=2048, cluster=cl,
@@ -298,62 +489,92 @@ def main() -> int:
             ticks.append((time.perf_counter() - t0) * 1e3)
             need(len(ticks) < 1000, "engine did not drain")
     serve_s = time.perf_counter() - t_serve
-    counts = ops.launch_counts()
+    serve_counts = ops.launch_counts()
     st = engine.stats()
-    emit({"phase": "serve", "servers": 4, "wire": "int8", "slots": 4,
-          "max_len": 2048, "requests": len(reqs),
+    emit({"phase": "serve", "arch": cfg.name, "servers": 4, "wire": "int8",
+          "slots": 4, "max_len": 2048, "requests": len(reqs),
           "done": sum(r.done for r in reqs), "steps": engine.steps,
           "tokens": tokens, "tick_ms_median": statistics.median(ticks),
           "tick_ms_first": ticks[0], "decode_tok_s": tokens / serve_s,
-          "decode_attention_launches": counts["decode_attention"],
-          "flash_attention_launches": counts["flash_attention"],
+          "launches": serve_counts,
           "kv": st["kv"], "wire_bytes": st["wire_bytes"],
           "weight_refreshes": st["weight_refreshes"],
           "weight_hits": st["weight_hits"],
           "round_trips": cl.sim.net.round_trips,
-          "virtual_makespan_us": cl.makespan_us()})
+          "virtual_makespan_us": cl.makespan_us(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     need(all(r.done for r in reqs), "not every request finished")
-    need(counts["decode_attention"] == cfg.n_layers * engine.steps,
-         f"K1 launched {counts['decode_attention']} times, want "
-         f"{cfg.n_layers} x {engine.steps}")
+    expect(serve_counts, {k: n * engine.steps for k, n in per_tick.items()},
+           f"serve ({engine.steps} ticks)")
     need(st["weight_refreshes"] >= 1, "no weight refresh")
 
-    # a few decode ticks from the served cache: kernel path vs plain path
-    ck = {**engine.cache, "layers": {k: t.clone() for k, t in
-                                     engine.cache["layers"].items()}}
-    cp = {**engine.cache, "layers": {k: t.clone() for k, t in
-                                     engine.cache["layers"].items()}}
-    gen_t = torch.Generator(dev).manual_seed(2)
-    decode_checks = []
-    with torch.no_grad():
-        for _ in range(3):
-            tok = torch.randint(0, cfg.vocab, (4, 1), device=dev,
-                                generator=gen_t)
-            lk, ck = decode_step(cfg, params, ck, tok)
-            lp, cp = decode_step(plain_cfg, params, cp, tok)
-            decode_checks.append({"length": ck["length"],
-                                  "rel_l2_vs_plain": _rel(lk, lp),
-                                  "max_abs_err": err(lk, lp)})
-    emit({"phase": "decode_check", "checks": decode_checks,
-          "tol": LOGIT_REL_TOL})
-    need(all(c["rel_l2_vs_plain"] <= LOGIT_REL_TOL for c in decode_checks),
-         "decode logits disagree with the plain path")
+    # a few decode steps from the served cache: kernel path vs plain path
+    served = engine.cache
+    del engine, weights
+    gc.collect()                 # the engine's weight cache is in a cycle
+    torch.cuda.empty_cache()
 
-    k1_row["launches"] = counts["decode_attention"]
-    k2_row["launches"] = k2_launches
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(smi, flush=True)
-    emit({"kernels": [{k: r[k] for k in keys} for r in (k1_row, k2_row)]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    def decode_pairs():
+        ck, cp = clone_cache(served), clone_cache(served)
+        if not bf16:
+            _cast_tree(ck, torch.float32)
+            _cast_tree(cp, torch.float32)
+        gen_t = torch.Generator(dev).manual_seed(2)
+        out = []
+        with torch.no_grad():
+            for _ in range(3):
+                tok = torch.randint(0, cfg.vocab, (4, 1), device=dev,
+                                    generator=gen_t)
+                lk, ck = decode_step(cfg, params, ck, tok)
+                lp, cp = decode_step(plain_cfg, params, cp, tok)
+                out.append({"length": ck["length"],
+                            "rel_l2_vs_plain": _rel(lk, lp),
+                            "max_abs_err": _err(lk, lp)})
+        return out
+    decode_checks = held(decode_pairs)
+    emit({"phase": "decode_check", "arch": cfg.name, "held_in": held_in,
+          "checks": decode_checks, "tol": tol})
+    need(all(c["rel_l2_vs_plain"] <= tol for c in decode_checks),
+         f"{cfg.name} decode logits disagree with the plain path")
+    return {f"{cfg.name} prefill": prefill_counts,
+            f"{cfg.name} serve": serve_counts}
+
+
+def _cast_tree(tree, like) -> None:
+    """Cast the floating leaves of a dict/list tree in place, one leaf at a
+    time (so the peak is the tree and one leaf), to ``like`` (a dtype) or to
+    the dtype of the matching leaf of the tree ``like``."""
+    import torch
+    for k in list(tree.keys() if isinstance(tree, dict)
+                  else range(len(tree))):
+        want = like if isinstance(like, torch.dtype) else like[k]
+        leaf = tree[k]
+        if isinstance(leaf, (dict, list)):
+            _cast_tree(leaf, want)
+        elif isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            tree[k] = leaf.to(want if isinstance(want, torch.dtype)
+                              else want.dtype)
+
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _within(a, b, tol: float) -> bool:
+    """|a - b| <= tol + tol * |b| everywhere (as assert_close)."""
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
 
 def _rel(a, b) -> float:
-    a, b = a.float(), b.float()
-    return float((a - b).norm() / b.norm())
+    """Relative L2 of a against b, accumulated in float32 row by row so a
+    (1, 4096, 256000) logits tensor needs no float32 copy of itself."""
+    num = den = 0.0
+    for x, y in zip(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])):
+        x, y = x.float(), y.float()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return (num / den) ** 0.5
 
 
 if __name__ == "__main__":

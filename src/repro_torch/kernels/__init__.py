@@ -7,11 +7,14 @@ a wrapper in ``<name>.py`` (checks, output allocation, launch counter), a
 plain PyTorch version in ``ref.py``, and dispatch by device in ``ops.py``.
 
 Kernels:
-  decode_attention — K1: one-token query vs a long KV cache (serve hot loop)
-  flash_attention  — K2: GQA attention forward, causal or not (prefill)
+  decode_attention — K1: one-token query vs a long KV cache or a ring
+                     (serve hot loop)
+  flash_attention  — K2: GQA attention forward, causal or not, with an
+                     optional sliding window (prefill)
+  rwkv_scan        — K4: the chunked WKV6 recurrence of RWKV6, from a state
+  rglru_scan       — K5: the RG-LRU linear recurrence h = a h + b
 
-Still to port (see ROADMAP.md): moe_gmm (K3), rwkv_scan (K4),
-rglru_scan (K5).
+Still to port (see ROADMAP.md): moe_gmm (K3).
 """
 
 from . import ops, ref

@@ -12,18 +12,23 @@
 // bytes over the 3.35 TB/s of HBM3.
 //
 // Design (simple and right first): one block of 128 threads per
-// (b, kv-head).  The G pre-scaled queries stay in shared memory as float32.
-// The block walks the cache in tiles of TK keys: it stages the k and v tile
-// in shared memory (float32, k rows padded by one word so that the threads
-// of a warp reading different rows hit different banks), computes the
-// G x TK scores, updates m / l per head with one warp per head, and folds
-// p @ v into accumulators that each thread keeps in registers.  k and v are
-// read through their strides, so the model's (B, S, Hkv, hd) cache is
-// passed as a permuted view and never copied.  Only B * Hkv blocks exist
-// (32 at the serving shape), well under the 132 SMs, and each thread stages
-// its share of a tile with one 2-byte load per loop step, so this kernel is
-// latency-bound and far from the byte bound; 16-byte loads and a split over
-// the sequence with a combine pass are the next steps.
+// (b, kv-head, slice of gb query heads of the group).  The gb pre-scaled
+// queries stay in shared memory as float32.  The block walks the cache in
+// tiles of TK keys: it stages the k and v tile in shared memory (float32,
+// k rows padded by one word so that the threads of a warp reading
+// different rows hit different banks), computes the gb x TK scores,
+// updates m / l per head with one warp per head, and folds p @ v into
+// accumulators that each thread keeps in registers (gb * hd <= 2048).  k
+// and v are read through their strides, so the model's (B, S, Hkv, hd)
+// cache is passed as a permuted view and never copied.  The launch splits
+// each group's G heads over G / gb blocks, gb the largest divisor of G
+// whose accumulators fit and that still gives a block for each of the 132
+// SMs (or gb = 1): MQA with G * hd = 16 * 256 = 4096 runs as 16 blocks per
+// kv head, each block reading the cache of its group (the later blocks of
+// a group mostly from L2).  Each thread stages its share of a tile with one
+// 2-byte load per loop step, so this kernel is latency-bound and far from
+// the byte bound; 16-byte loads and a split over the sequence with a
+// combine pass are the next steps.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -33,7 +38,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTK = 64;        // keys per tile
-constexpr int kMaxAcc = 16;    // accumulators per thread: G * hd <= 2048
+constexpr int kMaxAcc = 16;    // accumulators per thread: gb * hd <= 2048
+constexpr int kMaxElems = kThreads * kMaxAcc;
+constexpr int kMinBlocks = 132; // one block per SM of the H100
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -64,14 +71,16 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, T* __restrict__ out,
-                        int H, int Hkv, int S, int hd, float scale,
+                        int H, int Hkv, int S, int hd, int gb, float scale,
                         long long q_sb, long long q_sh,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
   const int G = H / Hkv;
+  const int nsplit = G / gb;
+  const int kvh = blockIdx.x / nsplit;
+  const int head0 = kvh * G + (blockIdx.x - kvh * nsplit) * gb;
+  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -79,23 +88,23 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hdp = hd + 1;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                         // [G][hd]
-  float* k_s = q_s + G * hd;                 // [kTK][hd + 1]
+  float* q_s = smem;                         // [gb][hd]
+  float* k_s = q_s + gb * hd;                // [kTK][hd + 1]
   float* v_s = k_s + kTK * hdp;              // [kTK][hd]
-  float* p_s = v_s + kTK * hd;               // [G][kTK]
-  float* m_s = p_s + G * kTK;                // [G]
-  float* l_s = m_s + G;                      // [G]
-  float* c_s = l_s + G;                      // [G] correction of this tile
+  float* p_s = v_s + kTK * hd;               // [gb][kTK]
+  float* m_s = p_s + gb * kTK;               // [gb]
+  float* l_s = m_s + gb;                     // [gb]
+  float* c_s = l_s + gb;                     // [gb] correction of this tile
 
   int len = lengths[b];
   if (len > S) len = S;
 
-  const T* qb = q + b * q_sb + (long long)kvh * G * q_sh;
-  for (int i = tid; i < G * hd; i += kThreads) {
+  const T* qb = q + b * q_sb + (long long)head0 * q_sh;
+  for (int i = tid; i < gb * hd; i += kThreads) {
     const int g = i / hd, d = i - g * hd;
     q_s[i] = to_f32(qb[g * q_sh + d]) * scale;
   }
-  for (int g = tid; g < G; g += kThreads) {
+  for (int g = tid; g < gb; g += kThreads) {
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
@@ -122,7 +131,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // scores: one (head, key) pair per thread and step
-    for (int i = tid; i < G * kTK; i += kThreads) {
+    for (int i = tid; i < gb * kTK; i += kThreads) {
       const int g = i / kTK, j = i - g * kTK;
       float sc = kNegInf;
       if (start + j < len) {
@@ -136,7 +145,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // online softmax update: one warp per head
-    for (int g = warp; g < G; g += nwarps) {
+    for (int g = warp; g < gb; g += nwarps) {
       float* row = p_s + g * kTK;
       float tmax = kNegInf;
       for (int j = lane; j < kTK; j += 32) tmax = fmaxf(tmax, row[j]);
@@ -162,7 +171,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int a = 0; a < kMaxAcc; ++a) {
       const int e = tid + a * kThreads;
-      if (e < G * hd) {
+      if (e < gb * hd) {
         const int g = e / hd, d = e - g * hd;
         const float* pr = p_s + g * kTK;
         float s = acc[a] * c_s[g];
@@ -172,11 +181,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  T* ob = out + b * o_sb + (long long)kvh * G * o_sh;
+  T* ob = out + b * o_sb + (long long)head0 * o_sh;
 #pragma unroll
   for (int a = 0; a < kMaxAcc; ++a) {
     const int e = tid + a * kThreads;
-    if (e < G * hd) {
+    if (e < gb * hd) {
       const int g = e / hd, d = e - g * hd;
       const float l = fmaxf(l_s[g], 1e-30f);
       ob[g * o_sh + d] = from_f32<T>(acc[a] / l);
@@ -189,19 +198,24 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, int B, int H, int Hkv, int S, int hd,
            const long long* st, cudaStream_t stream) {
   const int G = H / Hkv;
+  int gb = G;                  // query heads per block: see the design note
+  while (gb > 1 && (G % gb != 0 || gb * hd > kMaxElems ||
+                    (long long)B * H / gb < kMinBlocks))
+    --gb;
+  if (gb * hd > kMaxElems) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) *
-      ((size_t)G * hd + (size_t)kTK * (hd + 1) + (size_t)kTK * hd +
-       (size_t)G * kTK + 3 * (size_t)G);
+      ((size_t)gb * hd + (size_t)kTK * (hd + 1) + (size_t)kTK * hd +
+       (size_t)gb * kTK + 3 * (size_t)gb);
   cudaError_t err = cudaFuncSetAttribute(
       decode_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hkv, B);
+  dim3 grid(Hkv * (G / gb), B);
   decode_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), H, Hkv, S, hd,
-      (float)pow((double)hd, -0.5), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9]);
+      gb, (float)pow((double)hd, -0.5), st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9]);
   return (int)cudaGetLastError();
 }
 
@@ -215,8 +229,7 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
                                       void* out, int B, int H, int Hkv, int S,
                                       int hd, const long long* strides,
                                       void* stream) {
-  if (H % Hkv != 0 || (H / Hkv) * hd > kThreads * kMaxAcc)
-    return (int)cudaErrorInvalidValue;
+  if (H % Hkv != 0 || hd > kMaxElems) return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -4,7 +4,12 @@
 // function flash_attention (its _kernel body).  Same math: online softmax
 // over blocks of keys with float32 m / l / acc, the G = H / Hkv query heads
 // of a group reading the same k / v head, key blocks that lie wholly past
-// the causal frontier skipped.  Two differences, both toward
+// the causal frontier skipped.  With a sliding window (window > 0) key j is
+// kept for query i only when i + S - T - window < j <= i + S - T (the
+// model's _mask_bias, src/repro/models/layers.py, bottom-right aligned as
+// below), and key tiles wholly below the window are skipped as well, so a
+// windowed prefill reads about window keys per query.  Two differences,
+// both toward
 // src/repro/kernels/ref.py::attention: the causal mask is bottom-right
 // aligned (key j is seen by query i when j <= i + S - T; the Pallas mask
 // j <= i agrees only when T == S), and ragged tails of T and S are masked
@@ -67,7 +72,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
-                       int Hkv, int Tq, int S, int causal, float scale,
+                       int Hkv, int Tq, int S, int causal, int window,
+                       float scale,
                        long long q_sb, long long q_sh, long long q_st,
                        long long k_sb, long long k_sh, long long k_ss,
                        long long v_sb, long long v_sh, long long v_ss,
@@ -112,8 +118,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int last = min(q0 + kBQ, Tq) - 1;
     kend = min(S, last + offset + 1);
   }
+  int kbeg = 0;                        // the first query's lowest key
+  if (window > 0) kbeg = max(0, (q0 + offset - window + 1) / kBK * kBK);
 
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
+  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     __syncthreads();                   // q_s ready; previous tile consumed
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int j = i / HD, d = i - j * HD;
@@ -154,7 +162,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int kj = k0 + tx + 32 * c;
-        const bool ok = kj < S && (!causal || kj <= qi + offset);
+        const bool ok = kj < S && (!causal || kj <= qi + offset) &&
+                        (window <= 0 || kj > qi + offset - window);
         if (!ok) s[a][c] = kNegInf;
         rmax = fmaxf(rmax, s[a][c]);
       }
@@ -163,7 +172,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rsum = 0.f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float p = __expf(s[a][c] - m_new);
+        // a masked key weighs 0, also in a row with no key in this tile
+        const float p = s[a][c] == kNegInf ? 0.f : __expf(s[a][c] - m_new);
         p_s[r * kBK + tx + 32 * c] = p;
         rsum += p;
       }
@@ -205,8 +215,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int Tq, int S, int causal, const long long* st,
-           cudaStream_t stream) {
+           int H, int Hkv, int Tq, int S, int causal, int window,
+           const long long* st, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)kBQ * HD + (size_t)kBK * (HD + 1) + (size_t)kBK * HD +
        (size_t)kBQ * kBK);
@@ -218,46 +228,53 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Tq, S, causal,
-      (float)pow((double)HD, -0.5), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+      window, (float)pow((double)HD, -0.5), st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* out, int B,
-                int H, int Hkv, int Tq, int S, int hd, int causal,
+                int H, int Hkv, int Tq, int S, int hd, int causal, int window,
                 const long long* st, cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, S, causal, st, s);
+      return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
+                             st, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, S, causal, st, s);
+      return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
+                             st, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, S, causal, st, s);
+      return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
+                             st, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, H, Hkv, Tq, S, causal, st, s);
+      return launch<T, 256>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
+                             st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}.  strides
+// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}; window 0
+// means none, else it needs causal.  strides
 // (elements): q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, out_sb,
 // out_sh, out_st; the head-dim stride of every tensor is 1.  Returns a
 // cudaError_t (0 on success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int H,
                                      int Hkv, int Tq, int S, int hd,
-                                     int causal, const long long* strides,
-                                     void* stream) {
-  if (H % Hkv != 0 || (causal && Tq > S)) return (int)cudaErrorInvalidValue;
+                                     int causal, int window,
+                                     const long long* strides, void* stream) {
+  if (H % Hkv != 0 || (causal && Tq > S) || window < 0 ||
+      (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_hd<float>(q, k, v, out, B, H, Hkv, Tq, S, hd, causal,
-                              strides, s);
+                              window, strides, s);
   if (dtype == 1)
     return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, S, hd,
-                                      causal, strides, s);
+                                      causal, window, strides, s);
   return (int)cudaErrorInvalidValue;
 }

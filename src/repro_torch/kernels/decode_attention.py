@@ -17,7 +17,7 @@ import torch
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP_ELEMS = 2048          # G * hd: the kernel's register accumulators
+MAX_HEAD_DIM = 2048             # one head's register accumulators in a block
 
 launches = 0                    # kernel launches since the last reset
 _fn = None
@@ -45,9 +45,8 @@ def check(q, k, v, lengths) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)}")
-    if (H // k.shape[1]) * hd > MAX_GROUP_ELEMS:
-        raise ValueError(f"G*hd = {(H // k.shape[1]) * hd} > "
-                         f"{MAX_GROUP_ELEMS}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: want all "
                          "float32 or all bfloat16")

@@ -28,14 +28,14 @@ def _kernel():
     if _fn is None:
         fn = _build.load("flash_attention").repro_flash_attention
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 7
+                       + [ctypes.c_int] * 8
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def check(q, k, v, causal: bool) -> None:
+def check(q, k, v, causal: bool, window: int = 0) -> None:
     """Raise ``ValueError`` unless the kernel takes these inputs."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,T,hd), k/v (B,Hkv,S,hd); got "
@@ -47,6 +47,8 @@ def check(q, k, v, causal: bool) -> None:
                          f"{tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: want 0, or > 0 with causal")
     if causal and T > k.shape[2]:
         raise ValueError(f"causal attention needs T <= S; got T={T}, "
                          f"S={k.shape[2]}")
@@ -61,12 +63,13 @@ def check(q, k, v, causal: bool) -> None:
             raise ValueError("all inputs must be on one CUDA device")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,T,hd); k,v: (B,Hkv,S,hd), all read through their strides ->
     (B,H,T,hd) in q.dtype.  The causal mask is bottom-right aligned (query
-    i sees key j when j <= i + S - T), as in ``ref.attention``."""
+    i sees key j when j <= i + S - T), as in ``ref.attention``; a
+    ``window`` > 0 also drops keys j <= i + S - T - window."""
     global launches
-    check(q, k, v, causal)
+    check(q, k, v, causal, window)
     B, H, T, hd = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
@@ -78,8 +81,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), B, H, Hkv, T, S, hd, int(causal), strides,
-                stream)
+                out.data_ptr(), B, H, Hkv, T, S, hd, int(causal), window,
+                strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {rc}")

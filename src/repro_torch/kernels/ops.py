@@ -12,8 +12,11 @@ from __future__ import annotations
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import ref
+from . import rglru_scan as _rglru
+from . import rwkv_scan as _rwkv
 
-KERNELS = {"decode_attention": _decode, "flash_attention": _flash}
+KERNELS = {"decode_attention": _decode, "flash_attention": _flash,
+           "rwkv_scan": _rwkv, "rglru_scan": _rglru}
 
 
 def _on(t) -> str:
@@ -22,11 +25,11 @@ def _on(t) -> str:
     return t.device.type
 
 
-def flash_attention(q, k, v, causal: bool = True):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q: (B,H,T,hd); k,v: (B,Hkv,S,hd) -> (B,H,T,hd)."""
     if _on(q) == "cuda":
-        return _flash.flash_attention(q, k, v, causal=causal)
-    return ref.attention(q, k, v, causal=causal)
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, lengths):
@@ -34,6 +37,21 @@ def decode_attention(q, k, v, lengths):
     if _on(q) == "cuda":
         return _decode.decode_attention(q, k, v, lengths)
     return ref.decode_attention(q, k, v, lengths)
+
+
+def rwkv_scan(r, k, v, logw, u, S0=None):
+    """r,k,v,logw: (B,H,T,M); u: (H,M); S0: (B,H,M,M) or None -> (o
+    (B,H,T,M) f32, S (B,H,M,M) f32)."""
+    if _on(r) == "cuda":
+        return _rwkv.rwkv_scan(r, k, v, logw, u, S0)
+    return ref.rwkv_scan(r, k, v, logw, u, S0)
+
+
+def rglru_scan(a, b):
+    """a, b: (B,T,D) f32 -> h (B,T,D) f32, h_t = a_t h_{t-1} + b_t."""
+    if _on(a) == "cuda":
+        return _rglru.rglru_scan(a, b)
+    return ref.rglru_scan(a, b)
 
 
 def launch_counts() -> dict[str, int]:

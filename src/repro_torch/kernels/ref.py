@@ -10,9 +10,10 @@ import torch
 NEG_INF = -1e30
 
 
-def attention(q, k, v, *, causal: bool = True):
+def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,H,T,hd); k,v: (B,Hkv,S,hd) -> (B,H,T,hd).  The causal mask is
-    bottom-right aligned: query i sees key j when j <= i + S - T."""
+    bottom-right aligned: query i sees key j when j <= i + S - T, and with
+    a ``window`` > 0 only when also j > i + S - T - window."""
     B, H, T, hd = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -20,6 +21,8 @@ def attention(q, k, v, *, causal: bool = True):
     s = torch.einsum("bkgth,bksh->bkgts", qg, k.float())
     if causal:
         mask = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
+        if window:
+            mask &= ~mask.tril(S - T - window)
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgts,bksh->bkgth", p, v.float())
@@ -38,3 +41,34 @@ def decode_attention(q, k, v, lengths):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksh->bkgh", p, v.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def rwkv_scan(r, k, v, logw, u, S0=None):
+    """The WKV6 recurrence step by step, from ``S0`` (zeros if None):
+        o_t = r_t (S + diag(u) k_t v_t^T);  S = diag(exp(logw_t)) S + k_t v_t^T
+    r,k,v,logw: (B,H,T,M); u: (H,M); S0: (B,H,M,M) -> (o (B,H,T,M) f32,
+    S (B,H,M,M) f32)."""
+    B, H, T, M = r.shape
+    rf, kf, vf = r.float(), k.float(), v.float()
+    w = torch.exp(logw.float())
+    uf = u.float()[None, :, :, None]
+    S = torch.zeros((B, H, M, M), dtype=torch.float32, device=r.device) \
+        if S0 is None else S0.float()
+    os = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        os.append(torch.einsum("bhm,bhmn->bhn", rf[:, :, t], S + uf * kv))
+        S = w[:, :, t, :, None] * S + kv
+    return torch.stack(os, dim=2), S
+
+
+def rglru_scan(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, step by step.  a, b: (B,T,D)
+    -> (B,T,D) f32."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(af[:, 0])
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

@@ -5,10 +5,13 @@ card (the counterpart of ``repro.launch.serve``).
         [--full] [--device cuda] [--requests 12] [--slots 4] [--max-new 16] \\
         [--refresh-every 8] [--cluster 4 --wire int8] [--profile 8]
 
-``--full`` serves the published configuration (``configs.get``) instead of
-its reduced ``smoke()`` variant; weights are random, from a seeded
-``torch.Generator``.  ``--device`` defaults to ``cuda`` and raises without
-a card.  On the card, attention runs in the hand-written CUDA kernels.
+``--arch`` is any ported configuration: the dense, vlm and audio ones,
+``rwkv6-3b`` and ``recurrentgemma-9b``.  ``--full`` serves the published
+configuration (``configs.get``) instead of its reduced ``smoke()``
+variant; weights are random, from a seeded ``torch.Generator``.
+``--device`` defaults to ``cuda`` and raises without a card.  On the card,
+attention and the RWKV6 / RG-LRU recurrences run in the hand-written CUDA
+kernels.
 ``--profile N`` traces N ticks after the first with ``torch.profiler`` and
 prints the operators by device time and the device's busy share of the
 window.

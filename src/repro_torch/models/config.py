@@ -46,8 +46,9 @@ class ModelConfig:
     scan_layers: bool = True
     attn_chunk: int = 1024           # kv-block size for the chunked XLA path
     attn_impl: str = "xla"           # this port: "plain" runs the plain PyTorch
-                                     # attention on the card too; any other
-                                     # value runs the CUDA kernels there
+                                     # attention and recurrences on the card
+                                     # too; any other value runs the CUDA
+                                     # kernels there
     max_target_len: int = 8192       # serving cache default
     unroll_chunks: bool = False      # rwkv: python loop (flops calibration)
     unroll_experts: bool = False     # moe: python loop (flops calibration)

@@ -8,7 +8,8 @@ Layouts are the reference's:
 
 On a CUDA tensor attention runs in the hand-written kernels
 (``kernels.ops``): decode against the cache in ``decode_attention`` (K1),
-prefill and forward in causal ``flash_attention`` (K2).  The plain branches
+prefill and forward in causal ``flash_attention`` (K2), with the sliding
+window where the config has one.  The plain branches
 of ``attention`` run for CPU tensors, or on the card when
 ``cfg.attn_impl == "plain"`` (the reference a kernel run is held against).
 """
@@ -111,14 +112,15 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, chunk: int = 1024):
 
 # The card's path.  q: (B,T,H,hd); k,v: (B,S,Hkv,hd), handed to the kernels
 # as permuted views (never copied).
-def _prefill_kernel(q, k, v):
-    """Causal attention with q_pos == k_pos == arange(T): K2 with T == S."""
+def _prefill_kernel(q, k, v, window: int):
+    """Causal attention with q_pos == k_pos == arange(T): K2 with T == S,
+    keys older than ``window`` dropped when it is > 0."""
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+                              v.transpose(1, 2), causal=True, window=window)
     return out.transpose(1, 2)
 
 
-def _decode_kernel(q, kc, vc, length: int):
+def decode_kernel(q, kc, vc, length: int):
     """One token per row against the cache, valid below ``length``: K1."""
     B, T = q.shape[:2]
     if T != 1:
@@ -150,29 +152,36 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator, dtype, device):
     return p
 
 
-def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,
-               window: int = 0):
-    """x: (B,T,D); positions: (T,) int, shared across the batch.
-    cache: dict(k/v: (B,S,Hkv,hd) views, length: int) for decode.  The new
-    token's k/v are written into the cache in place (the reference's
-    donated buffer)."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention (ring cache) comes with the RG-LRU "
-            "family, ROADMAP Queue 1 item 8")
+def project_qkv(cfg: ModelConfig, p, x, positions):
+    """q (B,T,H,hd), k/v (B,T,Hkv,hd): projections, qk-norm and RoPE."""
     q = torch.einsum("btd,dnh->btnh", x, p["wq"])
     k = torch.einsum("btd,dnh->btnh", x, p["wk"])
     v = torch.einsum("btd,dnh->btnh", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    kernels = x.is_cuda and cfg.attn_impl != "plain"
+    return rope(q, positions, cfg.rope_theta), \
+        rope(k, positions, cfg.rope_theta), v
+
+
+def use_kernels(cfg: ModelConfig, x) -> bool:
+    """The card's path: CUDA tensors, unless the config asks for plain."""
+    return x.is_cuda and cfg.attn_impl != "plain"
+
+
+def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,
+               window: int = 0):
+    """x: (B,T,D); positions: (T,) int, shared across the batch.
+    cache: dict(k/v: (B,S,Hkv,hd) views, length: int) for decode.  The new
+    token's k/v are written into the cache in place (the reference's
+    donated buffer).  A windowed decode goes through the ring cache
+    (``transformer._attn_with_ring``) instead."""
+    q, k, v = project_qkv(cfg, p, x, positions)
+    kernels = use_kernels(cfg, x)
 
     if cache is None:
         if kernels:
-            out = _prefill_kernel(q, k, v)
+            out = _prefill_kernel(q, k, v, window)
         else:
             out = attention(q, k, v, positions, positions, window=window,
                             chunk=cfg.attn_chunk)
@@ -189,7 +198,10 @@ def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,
         vc[:, start:start + T] = v
         cache = {"k": kc, "v": vc, "length": length + T}
         if kernels:
-            out = _decode_kernel(q, kc, vc, min(length + T, S))
+            if window:
+                raise NotImplementedError("windowed decode on the card goes "
+                                          "through the ring cache")
+            out = decode_kernel(q, kc, vc, min(length + T, S))
         else:
             k_pos = torch.arange(S, device=x.device)
             # entries beyond `length` are masked by the causal bias

@@ -3,6 +3,9 @@ package's codes, scales and ``wire_bytes`` exactly (both round half to even
 and compute the scale with the same float32 operations), for tensors and
 for nested trees with stacked leaves."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,11 +82,32 @@ def test_round_half_to_even_like_jnp():
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
 
 
-@pytest.mark.parametrize("leaves", ["numpy", "torch"])
+def _model_tree(arch):
+    """A bf16 smoke model's parameters from the JAX package (recurrentgemma
+    with a tail) and the port's conversion of them, which keeps the
+    reference's float32 leaves."""
+    from repro import configs as jconfigs
+    from repro.models import init_params as j_init_params
+    from repro_torch import configs
+    from repro_torch.convert import params_from_jax
+    kw = {"n_layers": 5} if arch == "recurrentgemma_9b" else {}
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), **kw)
+    tree = jax.tree.map(np.asarray,
+                        j_init_params(jcfg, jax.random.PRNGKey(0)))
+    cfg = dataclasses.replace(configs.smoke(arch), **kw)
+    return tree, params_from_jax(tree, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("leaves", ["numpy", "torch", "rwkv6_3b",
+                                    "recurrentgemma_9b"])
 def test_quantize_tree_identical(leaves):
     rng = np.random.default_rng(2)
-    tree = _tree(rng)
-    mine = tree if leaves == "numpy" else tree_map(torch.from_numpy, tree)
+    if leaves in ("numpy", "torch"):
+        tree = _tree(rng)
+        mine = tree if leaves == "numpy" else tree_map(torch.from_numpy,
+                                                       tree)
+    else:
+        tree, mine = _model_tree(leaves)
     jp = jc.quantize_tree(tree)
     tp = tc.quantize_tree(mine)
     assert tc.wire_bytes(tp) == jc.wire_bytes(jp)
@@ -97,7 +121,16 @@ def test_quantize_tree_identical(leaves):
             np.testing.assert_array_equal(b["scale"].numpy(),
                                           np.asarray(a["scale"]))
         else:
-            np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+            np.testing.assert_array_equal(np.asarray(torch.as_tensor(b)
+                                                     .float()),
+                                          np.asarray(a, np.float32))
+    if leaves not in ("numpy", "torch"):
+        # the float32 leaves quantize from float32 and dequantize back to it
+        f32 = tp["layers"]["u"] if leaves == "rwkv6_3b" \
+            else tp["tail"][0]["rec"]["lam"]
+        assert f32["dtype"] == torch.float32
+        assert tc.dequantize_tree(tp)["embed"].dtype == torch.bfloat16
+        return
     # a stacked leaf gets one scale, as in the reference
     assert tp["layers"]["attn"]["wq"]["scale"].numel() == 1
     back = tc.dequantize_tree(tp)

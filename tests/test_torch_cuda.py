@@ -17,6 +17,8 @@ from repro_torch import configs                            # noqa: E402
 from repro_torch.kernels import ops, ref                   # noqa: E402
 from repro_torch.models import (decode_step, forward, init_cache,  # noqa
                                 init_params)
+from repro_torch.models.layers import attention              # noqa: E402
+from repro_torch.models.transformer import clone_cache        # noqa: E402
 
 TOLS = {"float32": 2e-3, "bfloat16": 2e-2}
 
@@ -50,10 +52,32 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, T, S, causal, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_decode_attention_matches_plain(cuda, dtype):
+@pytest.mark.parametrize("T,window", [(4096, 2048), (300, 100), (130, 64)])
+def test_cuda_flash_attention_window_matches_plain(cuda, dtype, T, window):
+    """recurrentgemma's local attention: MQA, hd=256, sliding window."""
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
-    B, S, Hkv, H, hd = 4, 2048, 8, 16, 128
+    q = torch.randn((1, 16, T, 256), generator=g, device=cuda).to(dt)
+    k = torch.randn((1, 1, T, 256), generator=g, device=cuda).to(dt)
+    v = torch.randn((1, 1, T, 256), generator=g, device=cuda).to(dt)
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    pos = torch.arange(T, device=cuda)
+    for want in (ref.attention(q, k, v, window=window),
+                 attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), pos, pos, window=window)
+                 .transpose(1, 2)):         # the model's plain attention
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hkv,H,hd", [(4, 2048, 8, 16, 128),
+                                          (4, 2048, 1, 16, 256)])   # MQA
+def test_cuda_decode_attention_matches_plain(cuda, dtype, B, S, Hkv, H, hd):
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
     cache = torch.randn((2, B, S, Hkv, hd), generator=g, device=cuda).to(dt)
     q = torch.randn((B, H, hd), generator=g, device=cuda).to(dt)
     k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
@@ -88,3 +112,75 @@ def test_cuda_model_kernel_path_matches_plain_path(cuda):
         torch.testing.assert_close(lk, lp, rtol=TOLS["float32"],
                                    atol=TOLS["float32"])
     assert ops.launch_counts()["decode_attention"] == 3 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,M,with_s0", [
+    (1, 40, 1024, 64, False), (1, 40, 1000, 64, False),   # ragged T
+    (4, 40, 1, 64, True), (2, 3, 130, 32, True)])         # decode; small M
+def test_cuda_rwkv_scan_matches_plain(cuda, dtype, B, H, T, M, with_s0):
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    # the model's layout: (B,T,H,M) projections seen as (B,H,T,M) views
+    r, k, v = (rand(B, T, H, M).to(dt).transpose(1, 2) for _ in range(3))
+    logw = (-0.105 * torch.sigmoid(rand(B, T, H, M))).transpose(1, 2)
+    u = rand(H, M) * 0.1
+    S0 = rand(B, H, M, M) * 0.5 if with_s0 else None
+    o, S = ops.rwkv_scan(r, k, v, logw, u, S0)
+    torch.cuda.synchronize()
+    oe, Se = ref.rwkv_scan(r, k, v, logw, u, S0)
+    torch.testing.assert_close(o, oe, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(S, Se, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,a_val", [
+    (1, 4096, 4096, None), (2, 1000, 4100, None), (4, 1, 4096, None),
+    (1, 128, 32, 1e-4)])                                  # strong decay
+def test_cuda_rglru_scan_matches_plain(cuda, B, T, D, a_val):
+    g = torch.Generator(cuda).manual_seed(0)
+    a = torch.sigmoid(torch.randn((B, T, D), generator=g, device=cuda))
+    if a_val is not None:
+        a = torch.full_like(a, a_val)
+    b = torch.randn((B, T, D), generator=g, device=cuda)
+    h = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h, ref.rglru_scan(a, b), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers,kernels", [
+    ("rwkv6_3b", 2, {"rwkv_scan": 2}),
+    ("recurrentgemma_9b", 5, {"rglru_scan": 4, "flash_attention": 1})])
+def test_cuda_recurrent_model_kernel_path_matches_plain_path(
+        cuda, arch, n_layers, kernels):
+    """Smoke rwkv6 / recurrentgemma (one scanned block and a tail of 2) in
+    float32: forward through K4 or K2 + K5 and decode steps through a ring
+    wrap (K4, or K1 + K5) against the same model with ``attn_impl="plain"``
+    on the card."""
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                              n_layers=n_layers)
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got, _ = forward(cfg, params, {"tokens": toks})
+    counts = ops.launch_counts()
+    assert {k: counts[k] for k in kernels} == kernels
+    want, _ = forward(plain, params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=TOLS["float32"],
+                               atol=TOLS["float32"])
+    c_k = init_cache(cfg, 2, 64, device=cuda)   # the ring wraps at 64
+    c_p = clone_cache(c_k)
+    for t in range(70):
+        lk, c_k = decode_step(cfg, params, c_k, toks[:, t:t + 1])
+        lp, c_p = decode_step(plain, params, c_p, toks[:, t:t + 1])
+        torch.testing.assert_close(lk, lp, rtol=TOLS["float32"],
+                                   atol=TOLS["float32"])

@@ -88,6 +88,7 @@ def test_flash_attention_shapes_beyond_pallas(T, S, causal):
     (2, 4, 2, 256, 64),
     (1, 8, 1, 512, 128),              # MQA long cache
     (3, 6, 6, 128, 64),
+    (2, 16, 1, 256, 256),             # recurrentgemma's MQA: G*hd = 4096
 ])
 def test_decode_attention_matches_pallas(B, H, Hkv, S, hd):
     rng = np.random.default_rng(3)
@@ -122,6 +123,95 @@ def test_decode_attention_strided_cache_views():
                                 jnp.asarray(lens.numpy())), "bfloat16")
 
 
+@pytest.mark.parametrize("T,S,window", [(96, 96, 32), (50, 50, 64),
+                                          (40, 100, 17), (130, 130, 64)])
+def test_flash_attention_window_matches_model_attention(T, S, window):
+    """K2's sliding window is the reference model's ``_mask_bias`` (a query
+    at position p sees keys in (p - window, p]), positions bottom-right
+    aligned as in the oracle."""
+    from repro.models.layers import attention as j_attention
+    rng = np.random.default_rng(5)
+    B, H, Hkv, hd = 2, 4, 1, 32
+    q = arr(rng, B, T, H, hd)
+    k = arr(rng, B, S, Hkv, hd)
+    v = arr(rng, B, S, Hkv, hd)
+    want = j_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       jnp.arange(S - T, S), jnp.arange(S), window=window)
+    got = ops.flash_attention(*(torch.from_numpy(a).transpose(1, 2)
+                                for a in (q, k, v)), window=window)
+    close(got.transpose(1, 2), want, "float32")
+
+
+def _rwkv_inputs(rng, B, H, T, M):
+    r, k, v = (arr(rng, B, H, T, M) for _ in range(3))
+    logw = (-0.105 / (1 + np.exp(-arr(rng, B, H, T, M)))).astype(np.float32)
+    u = arr(rng, H, M) * 0.1
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("B,H,T,M,chunk", [
+    (1, 1, 64, 16, 16),
+    (2, 2, 128, 32, 32),
+    (1, 2, 96, 16, 32),               # ragged chunk count
+])
+def test_rwkv_scan_matches_pallas(B, H, T, M, chunk):
+    rng = np.random.default_rng(6)
+    ins = _rwkv_inputs(rng, B, H, T, M)
+    o, S = ops.rwkv_scan(*(torch.from_numpy(a) for a in ins))
+    jins = [jnp.asarray(a) for a in ins]
+    for oe, Se in (jops.rwkv_scan(*jins, chunk=chunk), jref.rwkv_scan(*jins)):
+        close(o, oe, "float32")
+        close(S, Se, "float32")
+
+
+@pytest.mark.parametrize("T", [64, 1])
+def test_rwkv_scan_continues_from_a_state(T):
+    """``S0``: the port's scan from a nonzero state is the reference
+    model's ``_wkv_chunk`` from that state (one chunk of T steps; T == 1
+    is the decode step)."""
+    from repro.models.rwkv import _wkv_chunk
+    rng = np.random.default_rng(7)
+    B, H, M = 2, 3, 16
+    ins = _rwkv_inputs(rng, B, H, T, M)
+    S0 = arr(rng, B, H, M, M)
+    o, S = ops.rwkv_scan(*(torch.from_numpy(a) for a in ins),
+                         torch.from_numpy(S0))
+    oe, Se = _wkv_chunk(*(jnp.asarray(a) for a in ins), jnp.asarray(S0))
+    np.testing.assert_allclose(o.numpy(), np.asarray(oe), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(S.numpy(), np.asarray(Se), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,D,chunk,bd", [
+    (1, 64, 64, 32, 64),
+    (2, 128, 128, 32, 64),
+    (2, 256, 64, 64, 32),
+])
+def test_rglru_scan_matches_pallas(B, T, D, chunk, bd):
+    rng = np.random.default_rng(8)
+    a = (1 / (1 + np.exp(-arr(rng, B, T, D)))).astype(np.float32)
+    b = arr(rng, B, T, D)
+    h = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    close(h, jops.rglru_scan(ja, jb, chunk=chunk, block_d=bd), "float32")
+    close(h, jref.rglru_scan(ja, jb), "float32")
+
+
+def test_rglru_scan_strong_decay():
+    """Near-zero a: finite, and the reference's 1e-4."""
+    rng = np.random.default_rng(9)
+    a = np.full((1, 128, 32), 1e-4, np.float32)
+    b = arr(rng, 1, 128, 32)
+    h = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.isfinite(h).all()
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    for want in (jops.rglru_scan(ja, jb, chunk=32, block_d=32),
+                 jref.rglru_scan(ja, jb)):
+        np.testing.assert_allclose(h.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_ops_refuse_other_devices():
     q = torch.zeros((1, 2, 4, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -146,3 +236,35 @@ def test_kernel_wrappers_validate_inputs():
         k1.check(q[:, :, 0], k, k, torch.zeros((1,), dtype=torch.int64))
     with pytest.raises(ValueError, match="stride"):
         k2.check(q, k, k.transpose(2, 3).contiguous().transpose(2, 3), False)
+    with pytest.raises(ValueError, match="window"):
+        k2.check(q, k, k, False, window=4)
+    with pytest.raises(ValueError, match="head dim"):
+        k1.check(torch.zeros((1, 2, 4096)), torch.zeros((1, 1, 8, 4096)),
+                 torch.zeros((1, 1, 8, 4096)),
+                 torch.zeros((1,), dtype=torch.int32))
+
+
+def test_recurrence_wrappers_validate_inputs():
+    from repro_torch.kernels import rglru_scan as k5
+    from repro_torch.kernels import rwkv_scan as k4
+    x = torch.zeros((1, 2, 8, 16))
+    u = torch.zeros((2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.check(x, x, x, x, u)                       # CPU tensors
+    with pytest.raises(ValueError, match="M <= 64"):
+        y = torch.zeros((1, 2, 8, 128))
+        k4.check(y, y, y, y, torch.zeros((2, 128)))
+    with pytest.raises(ValueError, match="float32"):
+        k4.check(x, x, x, x.bfloat16(), u)
+    with pytest.raises(ValueError, match="S0"):
+        k4.check(x, x, x, x, u, torch.zeros((1, 2, 16, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.check(x, x, x, x, u,
+                 torch.zeros((1, 2, 16, 16)).transpose(2, 3))
+    a = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.check(a, a)
+    with pytest.raises(ValueError, match="float32"):
+        k5.check(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="unit stride"):
+        k5.check(a.transpose(1, 2), a.transpose(1, 2))

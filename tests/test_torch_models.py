@@ -1,9 +1,12 @@
 """Model parity: the PyTorch port against the JAX package, with parameters
 converted leaf by leaf from ``repro.models.init_params``, in float32 on the
 CPU.  Tolerance 1e-4 (float32 on both sides, summed in another order)
-unless a test says otherwise."""
+unless a test says otherwise.  The recurrent families run their smoke
+configs, recurrentgemma with 5 layers: one scanned block of 3 and an
+unrolled tail of 2 (``smoke()`` alone has no tail)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +33,20 @@ TOL = 1e-4
 ARCHS = [a for a in configs.ARCHS
          if configs.get(a).family in ("dense", "vlm", "audio")
          and not configs.get(a).window]
+RECURRENT = ["rwkv6_3b", "recurrentgemma_9b"]
+N_LAYERS = {"recurrentgemma_9b": 5}
+
+
+def smoke_pair(arch, **kw):
+    """(JAX config, port config) of ``arch``'s smoke variant."""
+    kw.setdefault("n_layers", N_LAYERS.get(arch, configs.smoke(arch)
+                                           .n_layers))
+    return (dataclasses.replace(jconfigs.smoke(arch), **kw),
+            dataclasses.replace(configs.smoke(arch), **kw))
 
 
 def f32(arch):
-    return (dataclasses.replace(jconfigs.smoke(arch), dtype="float32"),
-            dataclasses.replace(configs.smoke(arch), dtype="float32"))
+    return smoke_pair(arch, dtype="float32")
 
 
 def converted(arch, seed=0):
@@ -54,7 +66,7 @@ def test_windowless_dense_archs_listed():
                           "starcoder2_3b", "pixtral_12b", "musicgen_medium"}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_forward_logits_match_jax(arch):
     jcfg, cfg, jp, p = converted(arch)
     rng = np.random.default_rng(0)
@@ -71,23 +83,40 @@ def test_forward_logits_match_jax(arch):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def assert_tree_close(got, want, tol=TOL):
+    """Every leaf of a port tree against the JAX tree's, dtypes too."""
+    flat = jax.tree_util.tree_flatten_with_path
+    mine, theirs = flat(got)[0], flat(jax.tree.map(np.asarray, want))[0]
+    assert [p for p, _ in mine] == [p for p, _ in theirs]
+    for (path, a), (_, b) in zip(mine, theirs):
+        name = jax.tree_util.keystr(path)
+        assert str(a.dtype).removeprefix("torch.") == b.dtype.name, name
+        np.testing.assert_allclose(_np(a), b, rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+# dense archs: 4 steps; rwkv: 8; recurrentgemma: 70, through a wrap of
+# its 64-slot ring
+STEPS = {"rwkv6_3b": 8, "recurrentgemma_9b": 70}
+
+
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
 def test_decode_step_logits_match_jax(arch):
     jcfg, cfg, jp, p = converted(arch)
     rng = np.random.default_rng(1)
-    B, T = 2, 4
+    B, T = 2, STEPS.get(arch, 4)
     toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
     jc = j_init_cache(jcfg, B, 64)
     c = init_cache(cfg, B, 64, device="cpu")
+    j_step = jax.jit(functools.partial(j_decode_step, jcfg))
     for t in range(T):
-        want, jc = j_decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]))
+        want, jc = j_step(jp, jc, jnp.asarray(toks[:, t:t + 1]))
         got, c = decode_step(cfg, p, c, torch.from_numpy(toks[:, t:t + 1]))
         np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL,
                                    atol=TOL, err_msg=f"step {t}")
         assert c["length"] == int(jc["length"]) == t + 1
-    np.testing.assert_allclose(_np(c["layers"]["k"]),
-                               np.asarray(jc["layers"]["k"]), rtol=TOL,
-                               atol=TOL)
+    assert_tree_close({"layers": c["layers"], "tail": c["tail"]},
+                      {"layers": jc["layers"], "tail": jc["tail"]})
 
 
 def test_decode_append_clamps_at_cache_end():
@@ -116,6 +145,75 @@ def test_decode_append_clamps_at_cache_end():
         assert c2["length"] == length + 1
 
 
+def test_ring_cache_wraps_like_jax():
+    """A preset recurrentgemma cache (ring, recurrent states and tail) at
+    lengths around and past its W = 64 slots: the shared scalar length
+    keeps growing, the slot is ``length % W``.  One decode step from each,
+    logits and every new cache leaf against the reference."""
+    jcfg, cfg, jp, p = converted("recurrentgemma_9b")
+    rng = np.random.default_rng(4)
+    B = 2
+    empty = jax.tree.map(np.asarray, j_init_cache(jcfg, B, 64))
+    W = empty["layers"][2]["k"].shape[2]
+    assert W == cfg.window == 64
+    for length in (W - 1, W, W + 3, 3 * W + 5):
+        # the ring after `length` tokens: slot s holds the latest position
+        # p < length with p % W == s, or the sentinel if none was written
+        slots = np.arange(W)
+        pos = slots + (length - 1 - slots) // W * W
+        pos = np.where(pos >= 0, pos, -(1 << 30)).astype(np.int32)
+        jc = jax.tree.map(
+            lambda a: (rng.standard_normal(a.shape) * 0.5).astype(a.dtype),
+            empty)
+        jc["layers"][2]["slot_pos"] = np.broadcast_to(
+            pos, empty["layers"][2]["slot_pos"].shape).copy()
+        jc["length"] = np.asarray(length, np.int32)
+        c = cache_from_jax(jc, cfg, device="cpu")
+        tok = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+        want, jc2 = j_decode_step(jcfg, jp, jax.tree.map(jnp.asarray, jc),
+                                  jnp.asarray(tok))
+        got, c2 = decode_step(cfg, p, c, torch.from_numpy(tok))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL,
+                                   atol=TOL, err_msg=f"length {length}")
+        assert_tree_close({"layers": c2["layers"], "tail": c2["tail"]},
+                          {"layers": jc2["layers"], "tail": jc2["tail"]})
+        assert c2["length"] == length + 1
+
+
+@pytest.mark.parametrize("block", ["rglru", "time_mix"])
+def test_streamed_halves_match_one_shot(block):
+    """A recurrent block fed in two halves, the second from the first's
+    state, equals the reference's one-shot call (the reference's own test
+    holds its halves at 2e-3)."""
+    from repro.models import rglru as j_rglru
+    from repro.models import rwkv as j_rwkv
+    from repro_torch.models import rglru, rwkv
+    arch = "recurrentgemma_9b" if block == "rglru" else "rwkv6_3b"
+    jcfg, cfg, jp, p = converted(arch)
+    if block == "rglru":
+        jp_b, p_b = jp["layers"][0]["rec"], p["layers"][0]["rec"]
+        jp_b, p_b = jax.tree.map(lambda a: a[0], jp_b), \
+            {k: t[0] for k, t in p_b.items()}
+        j_fn = lambda x, st: j_rglru.rglru_block(jcfg, jp_b, x, st)  # noqa
+        fn = lambda x, st: rglru.rglru_block(cfg, p_b, x, st)        # noqa
+    else:
+        jp_b = jax.tree.map(lambda a: a[0], jp["layers"])
+        p_b = {k: t[0] for k, t in p["layers"].items()}
+        j_fn = lambda x, st: j_rwkv.time_mix(jcfg, jp_b, x, st)      # noqa
+        fn = lambda x, st: rwkv.time_mix(cfg, p_b, x, st)            # noqa
+    x = (np.random.default_rng(5).standard_normal((2, 70, cfg.d_model))
+         * 0.5).astype(np.float32)
+    want, wst = j_fn(jnp.asarray(x), None)
+    xt = torch.from_numpy(x)
+    y1, st1 = fn(xt[:, :33], None)
+    y2, st2 = fn(xt[:, 33:], st1)
+    np.testing.assert_allclose(_np(torch.cat([y1, y2], 1)), np.asarray(want),
+                               rtol=2e-3, atol=2e-3)
+    for k in wst:
+        np.testing.assert_allclose(_np(st2[k]), np.asarray(wst[k]),
+                                   rtol=2e-3, atol=2e-3, err_msg=k)
+
+
 @pytest.mark.parametrize("S,window", [(2500, 0), (3072, 0), (2200, 300)])
 def test_attention_chunked_branch_matches_jax(S, window):
     """S > max(2*chunk, 2048) takes the online-softmax loop over chunks
@@ -136,10 +234,11 @@ def test_attention_chunked_branch_matches_jax(S, window):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
 
 
-def test_decode_matches_prefill_port_only():
+@pytest.mark.parametrize("arch", ["qwen3_0_6b"] + RECURRENT)
+def test_decode_matches_prefill_port_only(arch):
     """``tests/test_models.py::test_decode_matches_prefill`` on the port
     alone, in the config's bf16, at the reference's 5e-2."""
-    cfg = configs.smoke("qwen3_0_6b")
+    cfg = smoke_pair(arch)[1]
     gen = torch.Generator("cpu").manual_seed(0)
     params = init_params(cfg, gen, device="cpu")
     rng = np.random.default_rng(1)
@@ -155,22 +254,47 @@ def test_decode_matches_prefill_port_only():
                                _np(full.float()), rtol=5e-2, atol=5e-2)
 
 
-def test_stacked_layers_keep_reference_layout():
-    jcfg, cfg, jp, p = converted("qwen3_0_6b")
-    assert p["layers"]["attn"]["wq"].shape == (cfg.n_layers, cfg.d_model,
-                                               cfg.n_heads, cfg.hd)
-    assert p["layers"]["attn"]["wo"].shape == (cfg.n_layers, cfg.n_heads,
-                                               cfg.hd, cfg.d_model)
-    shapes = jax.tree.map(lambda x: tuple(x.shape), jp)
-    mine = jax.tree.map(lambda x: tuple(x.shape),
-                        init_params(cfg, device="meta"))
-    assert shapes == mine
+def _layout(tree):
+    return jax.tree.map(lambda x: (tuple(x.shape),
+                                   str(x.dtype).removeprefix("torch.")), tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b"] + RECURRENT)
+def test_stacked_layers_keep_reference_layout(arch):
+    """Shapes and dtypes of the bf16 parameters and caches, as the
+    reference's ``init_params`` / ``init_cache`` lay them out: stacked
+    leaves, a list of per-position stacks and a tail for the hybrid, and
+    the leaves the reference keeps in float32 (RWKV's u / w0, RG-LRU's
+    lam, the recurrent states)."""
+    jcfg, cfg = smoke_pair(arch)
+    key = jax.random.PRNGKey(0)
+    jp = jax.eval_shape(functools.partial(j_init_params, jcfg), key)
+    assert _layout(init_params(cfg, device="meta")) == jax.tree.map(
+        lambda x: (x.shape, x.dtype.name), jp)
+    jc = jax.eval_shape(lambda: j_init_cache(jcfg, 2, 64))
+    c = init_cache(cfg, 2, 64, device="meta")
+    assert c["length"] == 0
+    assert _layout({"layers": c["layers"], "tail": c["tail"]}) \
+        == jax.tree.map(lambda x: (x.shape, x.dtype.name),
+                        {"layers": jc["layers"], "tail": jc["tail"]})
+    # conversion keeps each leaf's dtype
+    p = params_from_jax(jax.tree.map(np.asarray, j_init_params(jcfg, key)),
+                        cfg, device="cpu")
+    assert _layout(p) == _layout(init_params(cfg, device="meta"))
+    if arch == "qwen3_0_6b":
+        assert p["layers"]["attn"]["wq"].shape == (
+            cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd)
+    elif arch == "rwkv6_3b":
+        assert p["layers"]["u"].dtype == torch.float32
+        assert p["layers"]["wr"].dtype == torch.bfloat16
+    else:
+        assert len(p["layers"]) == 3 and len(p["tail"]) == 2
+        assert p["tail"][0]["rec"]["lam"].dtype == torch.float32
 
 
 def test_unported_families_name_their_roadmap_item():
-    for arch, item in (("qwen3_moe_235b", "item 6"), ("rwkv6_3b", "item 7"),
-                       ("recurrentgemma_9b", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
+    for arch in ("qwen3_moe_235b", "arctic_480b"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             init_params(configs.smoke(arch), device="cpu")
 
 

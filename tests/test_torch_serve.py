@@ -1,10 +1,12 @@
-"""Real-model serving parity: the smoke ``qwen3_0_6b`` engine in float32,
-with parameters converted from the JAX package, gives the JAX engine's
-token digest on the local plane and on ``Cluster(4)`` with the raw wire
-(the counterpart of ``tests/test_serve_dsm.py``'s real-model test).  If a
-token differs, the failure reports the port's argmax margin at that step."""
+"""Real-model serving parity: the smoke ``qwen3_0_6b``, ``rwkv6_3b`` and
+``recurrentgemma_9b`` (5 layers, with its tail) engines in float32, with
+parameters converted from the JAX package, give the JAX engine's token
+digest on the local plane and on ``Cluster(4)`` with the raw wire (the
+counterpart of ``tests/test_serve_dsm.py``'s real-model test).  If a token
+differs, the failure reports the port's argmax margin at that step."""
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -36,10 +38,13 @@ def _drain(eng, prompts, max_new=4):
     return eng
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = dataclasses.replace(jconfigs.smoke("qwen3_0_6b"), dtype="float32")
-    cfg = dataclasses.replace(configs.smoke("qwen3_0_6b"), dtype="float32")
+@functools.cache
+def _model(arch):
+    kw = {"dtype": "float32"}
+    if arch == "recurrentgemma_9b":
+        kw["n_layers"] = 5
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), **kw)
+    cfg = dataclasses.replace(configs.smoke(arch), **kw)
     jp = j_init_params(jcfg, jax.random.PRNGKey(0))
     p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     rng = np.random.default_rng(0)
@@ -48,9 +53,17 @@ def setup():
     return jcfg, cfg, jp, p, prompts
 
 
-@pytest.mark.parametrize("servers", [None, 4])
-def test_real_model_digest_matches_jax(setup, servers, monkeypatch):
-    jcfg, cfg, jp, p, prompts = setup
+@pytest.fixture(scope="module")
+def setup():
+    return _model("qwen3_0_6b")
+
+
+@pytest.mark.parametrize("servers,arch", [
+    pytest.param(s, a, id=str(s) if a == "qwen3_0_6b" else f"{a}-{s}")
+    for a in ("qwen3_0_6b", "rwkv6_3b", "recurrentgemma_9b")
+    for s in (None, 4)])
+def test_real_model_digest_matches_jax(servers, arch, monkeypatch):
+    jcfg, cfg, jp, p, prompts = _model(arch)
     ticks_j, ticks_t = [], []
 
     jeng = jserve.ServeEngine(jcfg, JOwnedState("w", jp), slots=2,
@@ -132,3 +145,13 @@ def test_serve_driver_runs_on_the_cpu(capsys):
     assert st["completed"] == 3 and st["weight_refreshes"] == 1
     out = capsys.readouterr().out
     assert "served 3/3 requests" in out and '"profile_ticks": 1' in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_serve_driver_runs_recurrent_archs_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve as launch_serve
+    st = launch_serve.main(["--arch", arch, "--device", "cpu", "--requests",
+                            "3", "--max-new", "2", "--cluster", "2",
+                            "--wire", "int8"])
+    assert st["completed"] == 3 and st["weight_refreshes"] == 1
+    assert "served 3/3 requests" in capsys.readouterr().out
