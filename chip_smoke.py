@@ -14,27 +14,42 @@ Phases, each printed as one JSON object on its own line:
               every launch) beside the least time the card could take and
               one PyTorch library call computing the same function, where
               there is one.
-  4. three models at their published widths and depths, in bf16, random
-     weights from a seeded ``torch.Generator``, one after the other (each
-     freed before the next):
+  4. four models at their published widths, in bf16, random weights from
+     a seeded ``torch.Generator``, one after the other (each freed before
+     the next):
        qwen3-0.6b         prefill B=1, T=1024 (K2)
        rwkv6-3b           prefill B=1, T=1024 (K4)
        recurrentgemma-9b  prefill B=1, T=4096 > its window of 2048 (K2
                           with the window, K5)
+       qwen3-moe-235b-a22b  prefill B=1, T=1024 (K2; K3 three times per
+                          layer: the experts' gate, up and down matmuls),
+                          cut to 3 of its 94 layers, the cut printed in its
+                          prefill line: 470 GB of bf16 weights do not fit
+                          one 80 GB card, and at 4 layers the int8 weight
+                          refresh (owner's weights, int8 codes, the cached
+                          bf16 copy and one leaf's float32 temporaries)
+                          would need about 82 GB.
+     The first three run at their published depths.
      For each, ``make_prefill`` is held against the same forward on the
      plain path (``attn_impl="plain"``: plain attention and recurrences);
      then a ``ServeEngine`` on ``Cluster(4, "drust")`` with the int8 weight
      wire serves 8 requests (half share a prefix page), every tick must
      launch each kernel of its decode path once per layer that runs it
-     (K1; K4; K1 and K5), and three decode steps from the served cache are
-     held against the plain path.  qwen3-0.6b is held in bf16 (relative L2
-     5e-2).  The recurrent models are held in float32, with the same
-     weights upcast (relative L2 2e-3): in bf16 their logits move by
-     several percent for any change of summation order in one layer (a
-     1e-6 relative change of the recurrence's output, in float32, flips
-     bf16 roundings that compound over 32 layers), so a bf16 comparison
-     cannot tell a right kernel from a wrong one; the bf16 numbers are
-     printed beside it.
+     (K1; K4; K1 and K5; K1 and three K3), and three decode steps from the
+     served cache are held against the plain path.  qwen3-0.6b is held in
+     bf16 (relative L2 5e-2).  The recurrent models are held in float32,
+     with the same weights upcast (relative L2 2e-3): in bf16 their logits
+     move by several percent for any change of summation order in one
+     layer (a 1e-6 relative change of the recurrence's output, in float32,
+     flips bf16 roundings that compound over 32 layers), so a bf16
+     comparison cannot tell a right kernel from a wrong one; the bf16
+     numbers are printed beside it.  The MoE model is held in float32 too,
+     for its routing: top-8 of 128 experts is discontinuous, and the two
+     paths hand the router hidden states that differ by float32 summation
+     order (about 1e-6) or by bf16 roundings (about 1e-2); with a typical
+     gap of about 0.06 between a token's 8th and 9th router logits, an
+     expert flips about once in 60,000 decisions in float32 and about once
+     in 6 in bf16, where a flip changes that token's output wholesale.
 
 Then one line ``{"kernels": [...]}`` with one entry per kernel and shape,
 its launches counted on the path that runs it, and, last, ``{"ok": true,
@@ -70,15 +85,38 @@ TOLS = {"float32": 2e-3, "bfloat16": 2e-2}
 LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 NO_LIBRARY = "no single PyTorch call computes it"
 
+# K3 on qwen3-moe-235b-a22b's path (E = 128 experts, d = 4096, expert
+# d_ff = 1536): gate/up (D = d, F = d_ff) and down (D = d_ff, F = d), at
+# the capacity of a T = 1024 prefill (C = 80) and of a 4-slot decode tick
+# (C = 4)
+K3_PATHS = [("qwen3-moe-235b-a22b prefill", 128, 80, 4096, 1536),
+            ("qwen3-moe-235b-a22b prefill", 128, 80, 1536, 4096),
+            ("qwen3-moe-235b-a22b serve", 128, 4, 4096, 1536),
+            ("qwen3-moe-235b-a22b serve", 128, 4, 1536, 4096)]
+# (E, C, D, F, strided x): the path shapes, then C, D and F that no tile
+# divides, C in every tile regime, and x read through a row stride
+K3_CASES = [(E, C, D, F_, False) for _, E, C, D, F_ in K3_PATHS] + [
+    (8, 80, 4100, 1540, False), (8, 4, 4100, 1540, True),
+    (6, 37, 1000, 200, True), (3, 1, 64, 8, False), (5, 13, 300, 129, False),
+    (4, 130, 520, 260, False)]
+
 # (model, prefill length, kernel launches per prefill / per decode tick,
-# the dtype the kernel path is held to the plain path in; see the module
-# docstring)
+# the dtype the kernel path is held to the plain path in, depth cut or
+# None; see the module docstring).  The MoE model runs last, after the
+# others are freed: its serve phase needs the most memory.
+MOE_LAYERS = 3
 MODELS = [
     ("qwen3_0_6b", 1024, {"flash_attention": 28}, {"decode_attention": 28},
-     "bfloat16"),
-    ("rwkv6_3b", 1024, {"rwkv_scan": 32}, {"rwkv_scan": 32}, "float32"),
+     "bfloat16", None),
+    ("rwkv6_3b", 1024, {"rwkv_scan": 32}, {"rwkv_scan": 32}, "float32",
+     None),
     ("recurrentgemma_9b", 4096, {"flash_attention": 12, "rglru_scan": 26},
-     {"decode_attention": 12, "rglru_scan": 26}, "float32"),
+     {"decode_attention": 12, "rglru_scan": 26}, "float32", None),
+    ("qwen3_moe_235b", 1024,
+     {"flash_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS},
+     {"decode_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS}, "float32",
+     {"n_layers": MOE_LAYERS,
+      "why": "int8 refresh peak on one 80 GB card"}),
 ]
 
 
@@ -138,9 +176,9 @@ def main() -> int:
     rows = kernel_phase(torch, dev)
 
     # 4. the models --------------------------------------------------------
-    for arch, T, per_prefill, per_tick, held_in in MODELS:
+    for arch, T, per_prefill, per_tick, held_in, cut in MODELS:
         launches = model_phases(torch, dev, arch, T, per_prefill, per_tick,
-                                held_in)
+                                held_in, cut)
         for row in rows:
             if row["path"] in launches:
                 row["launches"] = launches[row["path"]][row["name"]]
@@ -213,6 +251,15 @@ def kernel_phase(torch, dev) -> list[dict]:
         S0 = rand(B, H, M, M) * 0.5 if with_s0 else None
         return r, k, v, logw, u, S0
 
+    def k3_inputs(E, C, D, F_, dtype, strided=False):
+        """x (E,C,D), or a view of a wider buffer when ``strided``, and w
+        (E,D,F) as one layer's view of a stacked (2,E,D,F) leaf."""
+        x = rand(E, C, D + 96 if strided else D, dtype=dtype)[..., :D]
+        w = torch.empty((2, E, D, F_), dtype=dtype, device=dev)
+        for e in range(E):                 # one expert at a time: no f32 copy
+            w[1, e] = rand(D, F_, dtype=dtype)
+        return x, w[1]
+
     def k5_inputs(B, T, D, a_val=None):
         a = torch.sigmoid(rand(B, T, D))
         if a_val is not None:
@@ -236,7 +283,9 @@ def kernel_phase(torch, dev) -> list[dict]:
         for B, H, Hkv, S, hd, lens in ((4, 16, 8, 2048, 128,
                                         [1, 2048, 777, 1500]),
                                        (4, 16, 1, 2048, 256,
-                                        [1, 2048, 64, 1999])):
+                                        [1, 2048, 64, 1999]),
+                                       (4, 64, 4, 2048, 128,    # G = 16
+                                        [1, 2048, 33, 1000])):
             ins = k1_inputs(B, H, Hkv, S, hd, dtype, lens)
             check("decode_attention", {"dtype": dt, "H": H, "Hkv": Hkv,
                                        "hd": hd, "lengths": lens},
@@ -246,6 +295,7 @@ def kernel_phase(torch, dev) -> list[dict]:
                 (16, 8, 1024, 1024, 128, False, 0),
                 (16, 8, 1000, 1000, 128, True, 0),
                 (16, 8, 512, 1024, 128, True, 0),
+                (64, 4, 1024, 1024, 128, True, 0),
                 (16, 1, 4096, 4096, 256, True, 2048)):
             ins = k2_inputs(H, Hkv, T, S, hd, dtype)
             case = {"dtype": dt, "Hkv": Hkv, "T": T, "S": S, "hd": hd,
@@ -265,6 +315,13 @@ def kernel_phase(torch, dev) -> list[dict]:
             check("rwkv_scan", {"dtype": dt, "B": B, "H": 40, "T": T,
                                 "M": 64, "S0": with_s0},
                   ops.rwkv_scan(*ins), ref.rwkv_scan(*ins), TOLS["float32"])
+        # K3: the four path shapes, then ragged C, D and F and strided x
+        for E, C, D, F_, strided in K3_CASES:
+            x, w = k3_inputs(E, C, D, F_, dtype, strided)
+            check("moe_gmm", {"dtype": dt, "E": E, "C": C, "D": D, "F": F_,
+                              "strided_x": strided},
+                  ops.moe_gmm(x, w), ref.moe_gmm(x, w), tol)
+            del x, w
     for B, T, D, a_val in ((1, 4096, 4096, None), (2, 1000, 4100, None),
                            (4, 1, 4096, None), (1, 4096, 4096, 1e-4)):
         ins = k5_inputs(B, T, D, a_val)
@@ -307,7 +364,8 @@ def kernel_phase(torch, dev) -> list[dict]:
     K1 = "src/repro/kernels/decode_attention.py:62"
     for path, (B, H, Hkv, S, hd) in (
             ("qwen3-0.6b serve", (4, 16, 8, 2048, 128)),
-            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256))):
+            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256)),
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128))):
         ins = k1_inputs(B, H, Hkv, S, hd, bf, [S] * B)
         n_keys = B * S
         row("decode_attention", path,
@@ -320,7 +378,8 @@ def kernel_phase(torch, dev) -> list[dict]:
     K2 = "src/repro/kernels/flash_attention.py:68"
     for path, (H, Hkv, T, hd, window) in (
             ("qwen3-0.6b prefill", (16, 8, 1024, 128, 0)),
-            ("recurrentgemma-9b prefill", (16, 1, 4096, 256, 2048))):
+            ("recurrentgemma-9b prefill", (16, 1, 4096, 256, 2048)),
+            ("qwen3-moe-235b-a22b prefill", (64, 4, 1024, 128, 0))):
         ins = k2_inputs(H, Hkv, T, T, hd, bf)
         # (query, key) pairs under the causal mask and the window
         pairs = sum(min(i + 1, window or T) for i in range(T))
@@ -340,6 +399,15 @@ def kernel_phase(torch, dev) -> list[dict]:
             lambda q, k, v, w=window: ref.attention(q, k, v, window=w),
             sdpa, 2 * (2 * H * T * hd + 2 * Hkv * T * hd),
             4 * pairs * H * hd, "bfloat16", K2)
+
+    for path, E, C, D, F_ in K3_PATHS:
+        x, w = k3_inputs(E, C, D, F_, bf)
+        row("moe_gmm", path,
+            {"E": E, "C": C, "D": D, "F": F_, "dtype": "bfloat16"}, (x, w),
+            ops.moe_gmm, ref.moe_gmm, torch.bmm,
+            2 * (E * C * D + E * D * F_ + E * C * F_), 2 * E * C * D * F_,
+            "bfloat16", "src/repro/kernels/moe_gmm.py:42")
+        del x, w
 
     for path, (B, T, with_s0) in (("rwkv6-3b prefill", (1, 1024, False)),
                                   ("rwkv6-3b serve", (4, 1, True))):
@@ -378,11 +446,12 @@ def kernel_phase(torch, dev) -> list[dict]:
 # ---------------------------------------------------------------------------
 #  one model: prefill, serve, decode from the served cache
 # ---------------------------------------------------------------------------
-def model_phases(torch, dev, arch, T, per_prefill, per_tick,
-                 held_in) -> dict:
+def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
+                 cut=None) -> dict:
     """Run one model's phases in bf16, holding the kernel path to the plain
-    path in ``held_in``; returns the kernel launches counted on each of its
-    paths, keyed ``"<name> prefill"`` / ``"<name> serve"``."""
+    path in ``held_in``; ``cut`` ({"n_layers": N, "why": ...}) reduces the
+    depth.  Returns the kernel launches counted on each of its paths, keyed
+    ``"<name> prefill"`` / ``"<name> serve"``."""
     import numpy as np
 
     from repro_torch import configs
@@ -394,6 +463,11 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick,
     from repro_torch.serve import ServeEngine, make_prefill
 
     cfg = configs.get(arch)
+    reduced = None
+    if cut:
+        reduced = {"n_layers": [cfg.n_layers, cut["n_layers"]],
+                   "why": cut["why"]}
+        cfg = dataclasses.replace(cfg, n_layers=cut["n_layers"])
     plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
     tol = LOGIT_REL_TOL[held_in]
     bf16 = held_in == "bfloat16"
@@ -451,7 +525,8 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick,
             _, lp = make_prefill(plain_cfg)(params, {"tokens": toks})
         return _rel(lk, lp)
     rel = rel_bf16 if bf16 else held(prefill_pair)
-    emit({"phase": "prefill", "arch": cfg.name, "params": n_params,
+    emit({"phase": "prefill", "arch": cfg.name, "reduced": reduced,
+          "params": n_params,
           "init_s": init_s, "B": toks.shape[0], "T": toks.shape[1],
           "prefill_ms": prefill_ms, "plain_prefill_ms": plain_ms,
           "launches": prefill_counts, "logits_shape": shape,

@@ -11,10 +11,10 @@ Kernels:
                      (serve hot loop)
   flash_attention  — K2: GQA attention forward, causal or not, with an
                      optional sliding window (prefill)
+  moe_gmm          — K3: the per-expert batched matmul of the MoE block,
+                     x (E,C,D) @ w (E,D,F) over the capacity buffers
   rwkv_scan        — K4: the chunked WKV6 recurrence of RWKV6, from a state
   rglru_scan       — K5: the RG-LRU linear recurrence h = a h + b
-
-Still to port (see ROADMAP.md): moe_gmm (K3).
 """
 
 from . import ops, ref

@@ -11,12 +11,13 @@ from __future__ import annotations
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import moe_gmm as _gmm
 from . import ref
 from . import rglru_scan as _rglru
 from . import rwkv_scan as _rwkv
 
 KERNELS = {"decode_attention": _decode, "flash_attention": _flash,
-           "rwkv_scan": _rwkv, "rglru_scan": _rglru}
+           "moe_gmm": _gmm, "rwkv_scan": _rwkv, "rglru_scan": _rglru}
 
 
 def _on(t) -> str:
@@ -37,6 +38,13 @@ def decode_attention(q, k, v, lengths):
     if _on(q) == "cuda":
         return _decode.decode_attention(q, k, v, lengths)
     return ref.decode_attention(q, k, v, lengths)
+
+
+def moe_gmm(x, w):
+    """x: (E,C,D); w: (E,D,F) -> (E,C,F) in x.dtype, summed in float32."""
+    if _on(x) == "cuda":
+        return _gmm.moe_gmm(x, w)
+    return ref.moe_gmm(x, w)
 
 
 def rwkv_scan(r, k, v, logw, u, S0=None):

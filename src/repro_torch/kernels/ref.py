@@ -43,6 +43,12 @@ def decode_attention(q, k, v, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def moe_gmm(x, w):
+    """x: (E,C,D); w: (E,D,F) -> (E,C,F): the products in float32, cast
+    to x.dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
 def rwkv_scan(r, k, v, logw, u, S0=None):
     """The WKV6 recurrence step by step, from ``S0`` (zeros if None):
         o_t = r_t (S + diag(u) k_t v_t^T);  S = diag(exp(logw_t)) S + k_t v_t^T

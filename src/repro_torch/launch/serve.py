@@ -2,16 +2,20 @@
 card (the counterpart of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
-        [--full] [--device cuda] [--requests 12] [--slots 4] [--max-new 16] \\
-        [--refresh-every 8] [--cluster 4 --wire int8] [--profile 8]
+        [--full] [--layers N] [--device cuda] [--requests 12] [--slots 4] \\
+        [--max-new 16] [--refresh-every 8] [--cluster 4 --wire int8] \\
+        [--profile 8]
 
-``--arch`` is any ported configuration: the dense, vlm and audio ones,
-``rwkv6-3b`` and ``recurrentgemma-9b``.  ``--full`` serves the published
-configuration (``configs.get``) instead of its reduced ``smoke()``
-variant; weights are random, from a seeded ``torch.Generator``.
-``--device`` defaults to ``cuda`` and raises without a card.  On the card,
-attention and the RWKV6 / RG-LRU recurrences run in the hand-written CUDA
-kernels.
+``--arch`` is any configuration of ``configs``: the dense, vlm and audio
+ones, ``qwen3-moe-235b-a22b`` and ``arctic-480b`` (MoE), ``rwkv6-3b`` and
+``recurrentgemma-9b``.  ``--full`` serves the published configuration
+(``configs.get``) instead of its reduced ``smoke()`` variant, and
+``--layers N`` cuts the depth to N layers at the same widths (an MoE
+config does not fit one 80 GB card whole: qwen3-moe-235b-a22b runs with
+``--full --layers 3``); the cut is printed.  Weights are random, from a seeded
+``torch.Generator``.  ``--device`` defaults to ``cuda`` and raises without
+a card.  On the card, attention, the experts' matmuls and the RWKV6 /
+RG-LRU recurrences run in the hand-written CUDA kernels.
 ``--profile N`` traces N ticks after the first with ``torch.profiler`` and
 prints the operators by device time and the device's busy share of the
 window.
@@ -27,6 +31,7 @@ Demonstrates the paper's coherence protocol in the serving path:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import time
@@ -39,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--full", action="store_true",
                     help="the published config, not its smoke() variant")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="cut the config's depth to N layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
@@ -65,6 +72,10 @@ def main(argv=None):
     from repro_torch.serve import ServeEngine
 
     cfg = configs.get(args.arch) if args.full else configs.smoke(args.arch)
+    if args.layers:
+        print(json.dumps({"arch": cfg.name, "reduced": {
+            "n_layers": [cfg.n_layers, args.layers]}}))
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     gen = torch.Generator(dev if dev.type == "cuda" else "cpu")
     gen.manual_seed(0)

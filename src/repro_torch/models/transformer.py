@@ -1,8 +1,9 @@
-"""Decoder assembly in PyTorch for the dense, vlm, audio, rwkv and rglru
-families (the counterpart of ``repro.models.transformer``).
+"""Decoder assembly in PyTorch for every family: dense, vlm, audio, moe,
+rwkv and rglru (the counterpart of ``repro.models.transformer``).
 
 Layer recipes
   dense/vlm/audio : x += attn(norm(x));  x += mlp(norm(x))
+  moe             : x += attn(norm(x));  x += moe(norm(x)) [+ dense residual]
   rwkv            : x += time_mix(norm(x));  x += channel_mix(norm(x))
   rglru           : blocks of ``attn_every`` layers — (attn_every-1)
                     recurrent + 1 local-attention — scanned; the remainder
@@ -35,15 +36,9 @@ import torch
 from repro_torch.core.torchstate import tree_map
 from .config import ModelConfig
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RGLRU
 from . import rwkv as RWKV
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: family 'moe' is not ported yet; it comes with the "
-            f"MoE family and its moe_gmm kernel (K3), ROADMAP Queue 1 item 6")
 
 
 def resolve_device(device) -> torch.device:
@@ -99,7 +94,12 @@ def _layer_params(cfg: ModelConfig, gen: torch.Generator, i: int, dtype,
         p["attn"] = L.attn_params(cfg, gen, dtype, device)
     else:
         p["rec"] = RGLRU.rglru_params(cfg, gen, dtype, device)
-    p["mlp"] = L.mlp_params(cfg, gen, dtype, device)
+    if cfg.n_experts:
+        p["moe"] = MOE.moe_params(cfg, gen, dtype, device)
+        if cfg.dense_residual:
+            p["mlp"] = L.mlp_params(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = L.mlp_params(cfg, gen, dtype, device)
     return p
 
 
@@ -116,7 +116,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     0 if None).  The numbers differ from ``jax.random``'s: parity goes
     through ``convert.params_from_jax``.  ``device="meta"`` gives shapes
     and dtypes only."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -179,7 +178,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None, *,
     """Zeroed decode cache in the layout of ``init_params`` (see the module
     docstring), with attention caches S = max_len (or the window, for a
     ring) rounded up to ``attn_chunk``, and ``length`` 0."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     max_len = max_len or cfg.max_target_len
     n_scanned, tail = _layer_plan(cfg)
@@ -234,7 +232,7 @@ def _attn_with_ring(cfg: ModelConfig, p, x, positions, cache, length: int):
 
 def _block(cfg: ModelConfig, p, x, positions, cache, length):
     """One layer.  cache=None for prefill/forward; else this layer's cache
-    views, updated in place."""
+    views, updated in place.  Returns (x, the layer's MoE aux loss)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "rwkv":
         y, st = RWKV.time_mix(cfg, p, h, cache)
@@ -243,7 +241,7 @@ def _block(cfg: ModelConfig, p, x, positions, cache, length):
         y2, st2 = RWKV.channel_mix(cfg, p, h2, cache)
         if cache is not None:
             _store(cache, {**st, **st2})
-        return x + y2
+        return x + y2, 0.0
 
     if "attn" not in p:
         y, st = RGLRU.rglru_block(cfg, p["rec"], h, cache)
@@ -257,7 +255,12 @@ def _block(cfg: ModelConfig, p, x, positions, cache, length):
                             window=cfg.window)
     x = x + y
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_block(cfg, p["mlp"], h2)
+    if not cfg.n_experts:
+        return x + L.mlp_block(cfg, p["mlp"], h2), 0.0
+    y2, aux = MOE.moe_block(cfg, p["moe"], h2)
+    if cfg.dense_residual:
+        y2 = y2 + L.mlp_block(cfg, p["mlp"], h2)
+    return x + y2, aux
 
 
 def _head(cfg: ModelConfig, params):
@@ -270,29 +273,30 @@ def _head(cfg: ModelConfig, params):
 def forward(cfg: ModelConfig, params, batch):
     """Prefill forward.  batch: tokens (B,T) [+ prefix_embeds (B,P,D) for
     the VLM/audio stubs].  Returns (logits, aux_loss)."""
-    x = forward_hidden(cfg, params, batch)
+    x, aux_total = forward_hidden(cfg, params, batch)
     logits = torch.einsum("btd,dv->btv", x, _head(cfg, params))
-    return logits, 0.0
+    return logits, aux_total
 
 
 def forward_hidden(cfg: ModelConfig, params, batch):
-    """Forward up to the final norm (no logits)."""
-    _check_supported(cfg)
+    """Forward up to the final norm (no logits).  Returns (x, aux_total):
+    the MoE aux loss summed over layers, 0.0 without experts."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     if cfg.prefix_len and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_total = 0.0
     for p_layer in _scanned(cfg, params["layers"]) + params["tail"]:
-        x = _block(cfg, p_layer, x, positions, None, None)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = _block(cfg, p_layer, x, positions, None, None)
+        aux_total = aux_total + aux
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens):
     """One decode step.  tokens: (B,T).  Returns (logits (B,T,V), cache);
     the cache's entries and states are updated in place and the returned
     cache carries ``length + T``."""
-    _check_supported(cfg)
     length = cache["length"]
     x = params["embed"][tokens.long()]
     T = tokens.shape[1]
@@ -300,7 +304,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     p_layers = _scanned(cfg, params["layers"]) + params["tail"]
     c_layers = _scanned(cfg, cache["layers"]) + cache["tail"]
     for p_layer, c_layer in zip(p_layers, c_layers, strict=True):
-        x = _block(cfg, p_layer, x, positions, c_layer, length)
+        x, _ = _block(cfg, p_layer, x, positions, c_layer, length)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("btd,dv->btv", x, _head(cfg, params))
     return logits, {"layers": cache["layers"], "tail": cache["tail"],

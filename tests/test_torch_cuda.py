@@ -74,7 +74,8 @@ def test_cuda_flash_attention_window_matches_plain(cuda, dtype, T, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,Hkv,H,hd", [(4, 2048, 8, 16, 128),
-                                          (4, 2048, 1, 16, 256)])   # MQA
+                                          (4, 2048, 1, 16, 256),    # MQA
+                                          (4, 2048, 4, 64, 128)])   # G = 16
 def test_cuda_decode_attention_matches_plain(cuda, dtype, B, S, Hkv, H, hd):
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
@@ -184,3 +185,56 @@ def test_cuda_recurrent_model_kernel_path_matches_plain_path(
         lp, c_p = decode_step(plain, params, c_p, toks[:, t:t + 1])
         torch.testing.assert_close(lk, lp, rtol=TOLS["float32"],
                                    atol=TOLS["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F,strided", [
+    (128, 80, 4096, 1536, False), (128, 4, 1536, 4096, False),  # the path
+    (8, 80, 4100, 1540, False), (8, 4, 4100, 1540, True),       # ragged
+    (3, 1, 64, 8, False), (5, 13, 300, 129, True), (4, 130, 520, 260, False),
+    (6, 37, 1000, 200, False)])
+def test_cuda_moe_gmm_matches_plain(cuda, dtype, E, C, D, F, strided):
+    """K3 against ``ref.moe_gmm``: every tile regime of C, ragged C, D and
+    F, x read through a row stride and w as one layer's view of a stacked
+    leaf."""
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn((E, C, D + 8 if strided else D), generator=g,
+                    device=cuda).to(dt)[..., :D]
+    w = torch.randn((2, E, D, F), generator=g, device=cuda).to(dt)[1]
+    ops.reset_launch_counts()
+    got = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gmm"] == 1
+    torch.testing.assert_close(got.float(), ref.moe_gmm(x, w).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "arctic_480b"])
+def test_cuda_moe_model_kernel_path_matches_plain_path(cuda, arch):
+    """Smoke MoE models in float32: forward (T = 100, the capacity drops
+    tokens) and decode steps through K2/K1 and three K3 launches per layer
+    against the same model with ``attn_impl="plain"`` on the card."""
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got, aux = forward(cfg, params, {"tokens": toks})
+    assert ops.launch_counts()["moe_gmm"] == 3 * cfg.n_layers
+    want, want_aux = forward(plain, params, {"tokens": toks})
+    assert ops.launch_counts()["moe_gmm"] == 3 * cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=TOLS["float32"],
+                               atol=TOLS["float32"])
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-5)
+    c_k, c_p = (init_cache(cfg, 2, 64, device=cuda) for _ in range(2))
+    for t in range(4):
+        lk, c_k = decode_step(cfg, params, c_k, toks[:, t:t + 1])
+        lp, c_p = decode_step(plain, params, c_p, toks[:, t:t + 1])
+        torch.testing.assert_close(lk, lp, rtol=TOLS["float32"],
+                                   atol=TOLS["float32"])
+    assert ops.launch_counts()["moe_gmm"] == 3 * cfg.n_layers * 5

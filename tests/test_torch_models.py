@@ -1,8 +1,8 @@
 """Model parity: the PyTorch port against the JAX package, with parameters
 converted leaf by leaf from ``repro.models.init_params``, in float32 on the
 CPU.  Tolerance 1e-4 (float32 on both sides, summed in another order)
-unless a test says otherwise.  The recurrent families run their smoke
-configs, recurrentgemma with 5 layers: one scanned block of 3 and an
+unless a test says otherwise.  The recurrent and MoE families run their
+smoke configs, recurrentgemma with 5 layers: one scanned block of 3 and an
 unrolled tail of 2 (``smoke()`` alone has no tail)."""
 
 import dataclasses
@@ -34,6 +34,7 @@ ARCHS = [a for a in configs.ARCHS
          if configs.get(a).family in ("dense", "vlm", "audio")
          and not configs.get(a).window]
 RECURRENT = ["rwkv6_3b", "recurrentgemma_9b"]
+MOE = ["qwen3_moe_235b", "arctic_480b"]
 N_LAYERS = {"recurrentgemma_9b": 5}
 
 
@@ -66,7 +67,7 @@ def test_windowless_dense_archs_listed():
                           "starcoder2_3b", "pixtral_12b", "musicgen_medium"}
 
 
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT + MOE)
 def test_forward_logits_match_jax(arch):
     jcfg, cfg, jp, p = converted(arch)
     rng = np.random.default_rng(0)
@@ -77,9 +78,14 @@ def test_forward_logits_match_jax(arch):
                * 0.1).astype(np.float32)
         jb["prefix_embeds"] = jnp.asarray(pre)
         b["prefix_embeds"] = torch.from_numpy(pre)
-    want, _ = j_forward(jcfg, jp, jb)
+    want, want_aux = j_forward(jcfg, jp, jb)
     got, aux = forward(cfg, p, b)
-    assert aux == 0.0
+    if cfg.n_experts:            # the Switch aux loss summed over layers
+        assert float(want_aux) > 0
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=TOL,
+                                   atol=TOL)
+    else:
+        assert aux == 0.0
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
 
 
@@ -95,12 +101,13 @@ def assert_tree_close(got, want, tol=TOL):
                                    err_msg=name)
 
 
-# dense archs: 4 steps; rwkv: 8; recurrentgemma: 70, through a wrap of
-# its 64-slot ring
-STEPS = {"rwkv6_3b": 8, "recurrentgemma_9b": 70}
+# dense archs: 4 steps; rwkv and MoE: 8; recurrentgemma: 70, through a wrap
+# of its 64-slot ring
+STEPS = {"rwkv6_3b": 8, "recurrentgemma_9b": 70, "qwen3_moe_235b": 8,
+         "arctic_480b": 8}
 
 
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT + MOE)
 def test_decode_step_logits_match_jax(arch):
     jcfg, cfg, jp, p = converted(arch)
     rng = np.random.default_rng(1)
@@ -259,13 +266,13 @@ def _layout(tree):
                                    str(x.dtype).removeprefix("torch.")), tree)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_0_6b"] + RECURRENT)
+@pytest.mark.parametrize("arch", ["qwen3_0_6b"] + RECURRENT + MOE)
 def test_stacked_layers_keep_reference_layout(arch):
     """Shapes and dtypes of the bf16 parameters and caches, as the
     reference's ``init_params`` / ``init_cache`` lay them out: stacked
     leaves, a list of per-position stacks and a tail for the hybrid, and
     the leaves the reference keeps in float32 (RWKV's u / w0, RG-LRU's
-    lam, the recurrent states)."""
+    lam, the recurrent states, the MoE router)."""
     jcfg, cfg = smoke_pair(arch)
     key = jax.random.PRNGKey(0)
     jp = jax.eval_shape(functools.partial(j_init_params, jcfg), key)
@@ -287,15 +294,31 @@ def test_stacked_layers_keep_reference_layout(arch):
     elif arch == "rwkv6_3b":
         assert p["layers"]["u"].dtype == torch.float32
         assert p["layers"]["wr"].dtype == torch.bfloat16
+    elif arch in MOE:
+        assert p["layers"]["moe"]["router"].dtype == torch.float32
+        assert p["layers"]["moe"]["w_gate"].dtype == torch.bfloat16
+        assert ("mlp" in p["layers"]) == (arch == "arctic_480b")
     else:
         assert len(p["layers"]) == 3 and len(p["tail"]) == 2
         assert p["tail"][0]["rec"]["lam"].dtype == torch.float32
 
 
-def test_unported_families_name_their_roadmap_item():
-    for arch in ("qwen3_moe_235b", "arctic_480b"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            init_params(configs.smoke(arch), device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_every_config_inits_on_meta(arch):
+    """Every published configuration, the MoE ones included, lays out its
+    parameters and a decode cache (shapes and dtypes only, no memory) as
+    the reference's ``init_params`` / ``init_cache`` do."""
+    cfg = configs.get(arch)
+    jcfg = jconfigs.get(arch)
+    jp = jax.eval_shape(functools.partial(j_init_params, jcfg),
+                        jax.random.PRNGKey(0))
+    p = init_params(cfg, device="meta")
+    assert _layout(p) == jax.tree.map(lambda x: (x.shape, x.dtype.name), jp)
+    c = init_cache(cfg, 1, 64, device="meta")
+    jc = jax.eval_shape(lambda: j_init_cache(jcfg, 1, 64))
+    assert _layout({"layers": c["layers"], "tail": c["tail"]}) \
+        == jax.tree.map(lambda x: (x.shape, x.dtype.name),
+                        {"layers": jc["layers"], "tail": jc["tail"]})
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):

@@ -1,9 +1,10 @@
-"""Real-model serving parity: the smoke ``qwen3_0_6b``, ``rwkv6_3b`` and
-``recurrentgemma_9b`` (5 layers, with its tail) engines in float32, with
-parameters converted from the JAX package, give the JAX engine's token
-digest on the local plane and on ``Cluster(4)`` with the raw wire (the
-counterpart of ``tests/test_serve_dsm.py``'s real-model test).  If a token
-differs, the failure reports the port's argmax margin at that step."""
+"""Real-model serving parity: the smoke ``qwen3_0_6b``, ``rwkv6_3b``,
+``recurrentgemma_9b`` (5 layers, with its tail) and ``qwen3_moe_235b``
+engines in float32, with parameters converted from the JAX package, give
+the JAX engine's token digest on the local plane and on ``Cluster(4)``
+with the raw wire (the counterpart of ``tests/test_serve_dsm.py``'s
+real-model test).  If a token differs, the failure reports the port's
+argmax margin at that step."""
 
 import dataclasses
 import functools
@@ -60,7 +61,8 @@ def setup():
 
 @pytest.mark.parametrize("servers,arch", [
     pytest.param(s, a, id=str(s) if a == "qwen3_0_6b" else f"{a}-{s}")
-    for a in ("qwen3_0_6b", "rwkv6_3b", "recurrentgemma_9b")
+    for a in ("qwen3_0_6b", "rwkv6_3b", "recurrentgemma_9b",
+              "qwen3_moe_235b")
     for s in (None, 4)])
 def test_real_model_digest_matches_jax(servers, arch, monkeypatch):
     jcfg, cfg, jp, p, prompts = _model(arch)
@@ -155,3 +157,25 @@ def test_serve_driver_runs_recurrent_archs_on_the_cpu(arch, capsys):
                             "--wire", "int8"])
     assert st["completed"] == 3 and st["weight_refreshes"] == 1
     assert "served 3/3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_launch_serve_runs_moe_archs_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve as launch_serve
+    st = launch_serve.main(["--arch", arch, "--device", "cpu", "--requests",
+                            "3", "--max-new", "2", "--cluster", "2",
+                            "--wire", "int8"])
+    assert st["completed"] == 3 and st["weight_refreshes"] == 1
+    assert "served 3/3 requests" in capsys.readouterr().out
+
+
+def test_launch_serve_cuts_the_depth(capsys):
+    """``--layers N`` serves the config cut to N layers and prints the cut
+    (on the card: ``--full --layers 3`` for qwen3-moe-235b-a22b)."""
+    from repro_torch.launch import serve as launch_serve
+    st = launch_serve.main(["--arch", "qwen3-moe-235b-a22b", "--device",
+                            "cpu", "--layers", "1", "--requests", "2",
+                            "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert '"reduced": {"n_layers": [2, 1]}' in out
+    assert st["completed"] == 2
