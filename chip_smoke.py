@@ -13,7 +13,10 @@ Phases, each printed as one JSON object on its own line:
               2e-2), then times (CUDA events, median, L2 flushed before
               every launch) beside the least time the card could take and
               one PyTorch library call computing the same function, where
-              there is one.
+              there is one.  K1 is also checked at the boundaries of its
+              split over the cache and timed at the length the serve path
+              reaches (33), and one line gives the host time of one K1
+              wrapper call (1,000 calls, no synchronise).
   4. four models at their published widths, in bf16, random weights from
      a seeded ``torch.Generator``, one after the other (each freed before
      the next):
@@ -207,6 +210,8 @@ def kernel_phase(torch, dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import TILE as K1_TILE
+    from repro_torch.kernels.decode_attention import plan as k1_plan
     from repro_torch.models.layers import attention
 
     gen = torch.Generator(dev).manual_seed(0)
@@ -216,11 +221,15 @@ def kernel_phase(torch, dev) -> list[dict]:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def timed(fn, reps: int = 15) -> float:
-        """Median ms of one launch, L2 flushed before each."""
+        """Median ms of one launch, L2 flushed before each.  A device sleep
+        (about 0.15 ms) follows the flush, so that the card is still busy
+        when the host has enqueued the start event and the launch: the
+        events then span the device's work and not the host's."""
         fn()
         times = []
         for _ in range(reps):
             flush_buf.zero_()
+            torch.cuda._sleep(300_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -290,16 +299,35 @@ def kernel_phase(torch, dev) -> list[dict]:
             check("decode_attention", {"dtype": dt, "H": H, "Hkv": Hkv,
                                        "hd": hd, "lengths": lens},
                   ops.decode_attention(*ins), ref.decode_attention(*ins), tol)
+        # K1's split over the cache at its boundaries, B = 8, each path's
+        # heads: lengths 1, tile -/+ 1, split -/+ 1 and S
+        for H, Hkv, hd in ((16, 8, 128), (16, 1, 256), (64, 4, 128)):
+            S = 2048
+            kps = k1_plan(8, H, Hkv, S, hd).keys_per_split
+            lens = [1, K1_TILE - 1, K1_TILE + 1, kps - 1, kps, kps + 1,
+                    2 * kps + 1, S]
+            ins = k1_inputs(8, H, Hkv, S, hd, dtype, lens)
+            check("decode_attention", {"dtype": dt, "H": H, "Hkv": Hkv,
+                                       "hd": hd, "lengths": lens,
+                                       "keys_per_split": kps},
+                  ops.decode_attention(*ins), ref.decode_attention(*ins), tol)
         for H, Hkv, T, S, hd, causal, window in (
                 (16, 8, 1024, 1024, 128, True, 0),
                 (16, 8, 1024, 1024, 128, False, 0),
                 (16, 8, 1000, 1000, 128, True, 0),
                 (16, 8, 512, 1024, 128, True, 0),
                 (64, 4, 1024, 1024, 128, True, 0),
+                (16, 8, 1024, 1024, 64, True, 0),
+                (16, 8, 1000, 1000, 128, True, -1),    # q not 16-byte aligned
                 (16, 1, 4096, 4096, 256, True, 2048)):
+            unaligned = window < 0
+            window = max(window, 0)
             ins = k2_inputs(H, Hkv, T, S, hd, dtype)
+            if unaligned:
+                ins = (rand(1, H, T, hd + 1, dtype=dtype)[..., 1:],) + ins[1:]
             case = {"dtype": dt, "Hkv": Hkv, "T": T, "S": S, "hd": hd,
-                    "causal": causal, "window": window}
+                    "causal": causal, "window": window,
+                    "q_unaligned": unaligned}
             got = ops.flash_attention(*ins, causal=causal, window=window)
             check("flash_attention", case, got,
                   ref.attention(*ins, causal=causal, window=window), tol)
@@ -357,23 +385,66 @@ def kernel_phase(torch, dev) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
-    def sdpa_decode(q, k, v, lens):
-        return F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                              enable_gqa=True)
-
     K1 = "src/repro/kernels/decode_attention.py:62"
-    for path, (B, H, Hkv, S, hd) in (
-            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128)),
-            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256)),
-            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128))):
-        ins = k1_inputs(B, H, Hkv, S, hd, bf, [S] * B)
-        n_keys = B * S
+    # full lengths, then the lengths the serve path reaches (<= 33), where
+    # most splits are empty
+    for path, (B, H, Hkv, S, hd), length in (
+            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128), 2048),
+            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256), 2048),
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 2048),
+            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128), 33),
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 33)):
+        ins = k1_inputs(B, H, Hkv, S, hd, bf, [length] * B)
+        n_keys = B * length
+        pl = k1_plan(B, H, Hkv, S, hd)
+
+        def sdpa_decode(q, k, v, lens, n=length):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :, :n], v[:, :, :n], enable_gqa=True)
+
         row("decode_attention", path,
-            {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd, "lengths": "S",
-             "dtype": "bfloat16"}, ins, ops.decode_attention,
+            {"B": B, "H": H, "Hkv": Hkv, "S": S, "hd": hd,
+             "lengths": "S" if length == S else length, "dtype": "bfloat16",
+             "splits": pl.splits, "keys_per_split": pl.keys_per_split,
+             "blocks": pl.blocks}, ins, ops.decode_attention,
             ref.decode_attention, sdpa_decode,
             2 * (2 * B * H * hd) + 2 * n_keys * Hkv * hd * 2 + 4 * B,
             4 * n_keys * H * hd, "bfloat16", K1)
+
+    # the float32 K1 (CUDA cores) at the same shapes, beside the bf16 rows
+    # (tensor cores): what the CUDA-core design costs as G grows
+    k1_f32 = []
+    for path, (B, H, Hkv, S, hd), length in (
+            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128), 2048),
+            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256), 2048),
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 2048),
+            ("qwen3-0.6b serve", (4, 16, 8, 2048, 128), 33),
+            ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256), 33),
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 33)):
+        ins = k1_inputs(B, H, Hkv, S, hd, torch.float32, [length] * B)
+        k1_f32.append({"path": path, "lengths": length,
+                       "ms": timed(lambda: ops.decode_attention(*ins))})
+    emit({"phase": "k1_float32", "route": "CUDA cores", "times": k1_f32})
+
+    # host time of one K1 wrapper call: a host clock over 1,000 calls at
+    # the serve path's shape and length, without synchronising; the events
+    # around the same calls give the device's time for them back to back
+    ins = k1_inputs(4, 16, 8, 2048, 128, bf, [33] * 4)
+    for _ in range(20):
+        ops.decode_attention(*ins)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ops.decode_attention(*ins)
+    host_us = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    emit({"phase": "k1_host", "shape": "qwen3-0.6b serve, lengths 33",
+          "calls": 1000, "host_us_per_call": host_us,
+          "events_us_per_call": start.elapsed_time(end)})
 
     K2 = "src/repro/kernels/flash_attention.py:68"
     for path, (H, Hkv, T, hd, window) in (

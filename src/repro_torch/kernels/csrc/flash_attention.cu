@@ -9,28 +9,50 @@
 // model's _mask_bias, src/repro/models/layers.py, bottom-right aligned as
 // below), and key tiles wholly below the window are skipped as well, so a
 // windowed prefill reads about window keys per query.  Two differences,
-// both toward
-// src/repro/kernels/ref.py::attention: the causal mask is bottom-right
-// aligned (key j is seen by query i when j <= i + S - T; the Pallas mask
-// j <= i agrees only when T == S), and ragged tails of T and S are masked
-// here where the Pallas grid floor-divides them away.
+// both toward src/repro/kernels/ref.py::attention: the causal mask is
+// bottom-right aligned (key j is seen by query i when j <= i + S - T; the
+// Pallas mask j <= i agrees only when T == S), and ragged tails of T and S
+// are masked here where the Pallas grid floor-divides them away.
 //
 // What bounds it on the H100: operations.  A causal prefill of B=1, H=16,
 // T=S=1024, hd=128 does ~4.3 GFLOP on ~12.6 MB, far above the card's ridge
 // of ~295 flop/byte, so the bound is the flops over the 989 TFLOP/s bf16
 // tensor-core peak.
 //
-// Design (simple and right first): one block of 256 threads per
-// (b * H + h, tile of 64 queries).  The block stages the scaled query tile
-// once, then walks 64-key tiles of k and v through shared memory as
-// float32 (k rows padded by one word against bank conflicts) up to the
-// causal frontier.  Each warp owns 8 query rows: it computes their 64
-// scores on CUDA cores, keeps m / l in registers, reduces row max and sum
-// with warp shuffles, writes p to its own rows of shared memory and folds
-// p @ v into register accumulators.  Every tensor is read through its
-// strides, so the model's (B, T, H, hd) projections are passed as permuted
-// views and never copied.  This runs on CUDA cores at a small fraction of
-// the tensor-core bound; wgmma tiles fed by TMA are the next step.
+// bf16 design (flash_attention_tc): both products on the bf16 tensor cores
+// with mma.sync.m16n8k16 (float32 accumulators), FlashAttention-2 style.
+// One block of 4 warps per (b * H + h, tile of 64 queries), the tiles with
+// the most keys launched first; each warp owns 16 query rows.  The query
+// tile is copied once into shared memory and, for hd <= 128, loaded into
+// registers as A fragments (hd = 256 reads them from shared memory per key
+// tile, to leave registers for its 128 accumulators).  Keys and values
+// walk a two-stage ring of BK-key tiles (64 keys for hd <= 128, 32 for
+// hd = 256), filled by cp.async 16-byte copies with the next tile in
+// flight while the current one is multiplied; rows whose address is not
+// 16-byte aligned are copied element by element instead, and rows past S
+// are zero-filled.  Tiles are XOR-swizzled by 16-byte chunk (chunk c of
+// row r sits at c ^ (r mod 8), or c ^ ((r / 2) mod 4) for 64-byte rows),
+// so ldmatrix reads them without bank conflicts: plain ldmatrix gives the
+// B fragments of k for S = Q K^T, ldmatrix.trans those of v for O += P V.
+// The scores stay in registers; the online softmax takes row maxima and
+// sums across the four lanes that share a row, and P is packed from the S
+// accumulators into bf16 A fragments for P V without passing through
+// shared memory.  Masks are evaluated only on tiles that cross the causal
+// frontier, the window's edge or S.  The next step is wgmma fed by TMA
+// with warp specialisation.
+//
+// float32 design (flash_attention_kernel, unchanged): CUDA cores, so the
+// float32 callers keep full float32 products (TF32 would carry about three
+// decimal digits).  One block of 256 threads per (b * H + h, tile of 64
+// queries) stages the scaled query tile, then walks 64-key tiles of k and
+// v through shared memory as float32 (k rows padded by one word); each warp
+// owns 8 query rows, computes their scores, reduces with warp shuffles and
+// folds p @ v into register accumulators.
+//
+// Every tensor is read through its strides, so the model's (B, T, H, hd)
+// projections are passed as permuted views and never copied.  The dynamic
+// shared-memory attribute is set once per instantiation and device, not
+// per launch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -46,16 +68,9 @@ constexpr int kCols = kBK / 32;                // score columns per lane: 2
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -213,6 +228,331 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+//  bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 128;   // 4 warps, 16 query rows each
+constexpr int kTcBQ = 64;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Element offset of chunk c (8 bf16) of row r in a swizzled tile with CPR
+// 16-byte chunks per row.
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (CPR >= 8) {
+    return (r * CPR + (c ^ (r & 7))) * 8;
+  } else {
+    static_assert(CPR == 4, "hd 32: 4 chunks per row");
+    return (r * CPR + (c ^ ((r >> 1) & 3))) * 8;
+  }
+}
+
+// Copy ROWS rows of HD bf16 (rows row0 + r of g, row stride rs) into the
+// swizzled tile s: cp.async where a chunk is 16-byte aligned, element
+// loads where it is not, zeros for rows at or past nvalid.
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
+                                          const __nv_bfloat16* g,
+                                          long long rs, int row0,
+                                          int nvalid) {
+  constexpr int CPR = HD / 8;
+  constexpr int N = ROWS * CPR;              // 16-byte chunks in the tile
+  // a fixed trip count, unrolled: the row, chunk and swizzle of each of a
+  // thread's chunks are affine in j, so their arithmetic is hoisted
+#pragma unroll
+  for (int j = 0; j < (N + kTcThreads - 1) / kTcThreads; ++j) {
+    const int i = (int)threadIdx.x + j * kTcThreads;
+    if (N % kTcThreads != 0 && i >= N) break;
+    const int r = i / CPR, c = i - r * CPR;
+    __nv_bfloat16* dst = s + swz<CPR>(r, c);
+    if (row0 + r < nvalid) {
+      const __nv_bfloat16* src = g + (long long)(row0 + r) * rs + c * 8;
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = src[e];
+      }
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+template <int HD>
+struct TcShape {
+  static constexpr int BK = HD <= 128 ? 64 : 32;   // keys per tile
+  static constexpr bool kQRegs = HD <= 128;         // Q fragments in regs
+  static constexpr size_t smem =
+      sizeof(__nv_bfloat16) * ((size_t)kTcBQ * HD + 4 * (size_t)BK * HD);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_tc(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int H, int Hkv, int Tq,
+                   int S, int causal, int window, float scale,
+                   long long q_sb, long long q_sh, long long q_st,
+                   long long k_sb, long long k_sh, long long k_ss,
+                   long long v_sb, long long v_sh, long long v_ss,
+                   long long o_sb, long long o_sh, long long o_st) {
+  constexpr int BK = TcShape<HD>::BK;
+  constexpr int CPR = HD / 8;
+  constexpr int NT = BK / 8;          // score n-tiles of 8 keys
+  constexpr int DT = HD / 8;          // output n-tiles of 8 dims
+  constexpr int KS = HD / 16;         // k-steps of S = Q K^T
+  constexpr bool kQRegs = TcShape<HD>::kQRegs;
+
+  extern __shared__ uint4 smem_tc[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_tc);
+  __nv_bfloat16* ring = q_s + kTcBQ * HD;   // [stage][k, v][BK][HD]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;   // longest first
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, its row
+
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
+
+  const int offset = S - Tq;          // bottom-right aligned causal mask
+  int kend = S;
+  if (causal) kend = min(S, min(q0 + kTcBQ, Tq) - 1 + offset + 1);
+  int kbeg = 0;
+  if (window > 0) kbeg = max(0, (q0 + offset - window + 1) / BK * BK);
+  const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+
+  load_tile<HD, kTcBQ>(q_s, qb, q_st, q0, Tq);
+  if (ntiles > 0) {
+    load_tile<HD, BK>(ring, kb, k_ss, kbeg, S);
+    load_tile<HD, BK>(ring + BK * HD, vb, v_ss, kbeg, S);
+  }
+  cp_commit();
+
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  unsigned qf[kQRegs ? KS : 1][4];
+  const int qrow = warp * 16 + (mi & 1) * 8 + mr;   // this lane's ldmatrix row
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = kbeg + t * BK;
+    if (t + 1 < ntiles) {
+      __nv_bfloat16* nk = ring + ((t + 1) & 1) * 2 * BK * HD;
+      load_tile<HD, BK>(nk, kb, k_ss, k0 + BK, S);
+      load_tile<HD, BK>(nk + BK * HD, vb, v_ss, k0 + BK, S);
+    }
+    cp_commit();
+    cp_wait_one();
+    __syncthreads();
+    const __nv_bfloat16* ks = ring + (t & 1) * 2 * BK * HD;
+    const __nv_bfloat16* vs = ks + BK * HD;
+    if constexpr (kQRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldsm_x4(qf[kk], q_s + swz<CPR>(qrow, kk * 2 + (mi >> 1)));
+      }
+    }
+
+    // S = Q K^T for this warp's 16 rows and BK keys
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, q_s + swz<CPR>(qrow, kk * 2 + (mi >> 1)));
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bf[4];
+        ldsm_x4(bf, ks + swz<CPR>(np * 16 + (mi >> 1) * 8 + mr,
+                                  kk * 2 + (mi & 1)));
+        mma16816(s[2 * np], a, bf[0], bf[1]);
+        mma16816(s[2 * np + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // scale, then mask where the tile crosses S, the frontier or the window
+    const bool edge = k0 + BK > S ||
+                      (causal && k0 + BK - 1 > q0 + offset) ||
+                      (window > 0 && k0 <= q0 + kTcBQ - 1 + offset - window);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale;
+        if (edge) {
+          const int qi = q0 + warp * 16 + g + (e >> 1) * 8;
+          const int kj = k0 + n * 8 + 2 * t4 + (e & 1);
+          const bool ok = kj < S && (!causal || kj <= qi + offset) &&
+                          (window <= 0 || kj > qi + offset - window);
+          if (!ok) x = kNegInf;
+        }
+        s[n][e] = x;
+      }
+
+    // online softmax for the lane's two rows (g and g + 8)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(mrow[rr], mx);
+      const float corr = __expf(mrow[rr] - m_new);
+      mrow[rr] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 2 * rr; e < 2 * rr + 2; ++e) {
+          // a masked key weighs 0, also in a row with no key in this tile
+          const float p = s[n][e] == kNegInf ? 0.f : __expf(s[n][e] - m_new);
+          s[n][e] = p;
+          sum += p;
+        }
+      lrow[rr] = lrow[rr] * corr + sum;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        o[d][2 * rr] *= corr;
+        o[d][2 * rr + 1] *= corr;
+      }
+    }
+
+    // O += P V, P packed from the score accumulators into A fragments
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        unsigned bf[4];
+        ldsm_x4_t(bf, vs + swz<CPR>(kk * 16 + (mi & 1) * 8 + mr,
+                                    dp * 2 + (mi >> 1)));
+        mma16816(o[2 * dp], a, bf[0], bf[1]);
+        mma16816(o[2 * dp + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();                  // this stage may be refilled
+  }
+  cp_wait_all();
+
+  __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = lrow[rr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int qi = q0 + warp * 16 + g + rr * 8;
+    if (qi < Tq) {
+      __nv_bfloat16* orow = ob + qi * o_st;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        orow[d * 8 + 2 * t4] = __float2bfloat16(o[d][2 * rr] * inv);
+        orow[d * 8 + 2 * t4 + 1] = __float2bfloat16(o[d][2 * rr + 1] * inv);
+      }
+    }
+  }
+}
+
+// Set a kernel's dynamic shared-memory limit once per device: done keeps
+// one bit per device, in the caller's instantiation.
+inline cudaError_t smem_once(const void* fn, size_t bytes, unsigned* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (*done & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int Hkv, int Tq, int S, int causal, int window,
+              const long long* st, cudaStream_t stream) {
+  static unsigned done = 0;
+  const size_t smem = TcShape<HD>::smem;
+  cudaError_t err =
+      smem_once((const void*)flash_attention_tc<HD>, smem, &done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Tq + kTcBQ - 1) / kTcBQ, B * H);
+  flash_attention_tc<HD><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      H, Hkv, Tq, S, causal, window, (float)pow((double)HD, -0.5), st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11]);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Hkv, int Tq, int S, int causal, int window,
@@ -220,9 +560,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const size_t smem = sizeof(float) *
       ((size_t)kBQ * HD + (size_t)kBK * (HD + 1) + (size_t)kBK * HD +
        (size_t)kBQ * kBK);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static unsigned done = 0;
+  cudaError_t err =
+      smem_once((const void*)flash_attention_kernel<T, HD>, smem, &done);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
@@ -233,25 +573,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* out, int B,
-                int H, int Hkv, int Tq, int S, int hd, int causal, int window,
-                const long long* st, cudaStream_t s) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
+// bf16 goes to the tensor cores, float32 to the CUDA-core kernel.
+template <int HD>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* out, int B, int H, int Hkv, int Tq, int S, int causal,
+                 int window, const long long* st, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, HD>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
                              st, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
-                             st, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
-                             st, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
-                             st, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_tc<HD>(q, k, v, out, B, H, Hkv, Tq, S, causal, window, st,
+                         s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -270,11 +603,19 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
       (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, out, B, H, Hkv, Tq, S, hd, causal,
+  switch (hd) {
+    case 32:
+      return launch_dtype<32>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
                               window, strides, s);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, out, B, H, Hkv, Tq, S, hd,
-                                      causal, window, strides, s);
-  return (int)cudaErrorInvalidValue;
+    case 64:
+      return launch_dtype<64>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
+                              window, strides, s);
+    case 128:
+      return launch_dtype<128>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
+                               window, strides, s);
+    case 256:
+      return launch_dtype<256>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
+                               window, strides, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

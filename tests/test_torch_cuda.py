@@ -75,7 +75,11 @@ def test_cuda_flash_attention_window_matches_plain(cuda, dtype, T, window):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,Hkv,H,hd", [(4, 2048, 8, 16, 128),
                                           (4, 2048, 1, 16, 256),    # MQA
-                                          (4, 2048, 4, 64, 128)])   # G = 16
+                                          (4, 2048, 4, 64, 128),    # G = 16
+                                          # CUDA cores in bf16 too: hd
+                                          # outside the mma set, hd > 256
+                                          (4, 1000, 2, 8, 96),
+                                          (4, 1000, 1, 2, 512)])
 def test_cuda_decode_attention_matches_plain(cuda, dtype, B, S, Hkv, H, hd):
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
@@ -88,6 +92,64 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, B, S, Hkv, H, hd):
     want = ref.decode_attention(q, k, v, lens)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype],
                                atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 16])
+def test_cuda_decode_attention_split_boundaries(cuda, dtype, hd, G):
+    """K1's split over the cache at every boundary: lengths 1, tile - 1,
+    tile, tile + 1, split - 1, split, split + 1 and S, on strided views of
+    the model's (B, S, Hkv, hd) cache."""
+    from repro_torch.kernels import decode_attention as k1
+    Hkv, S = 2, 8192
+    pl = k1.plan(8, G * Hkv, Hkv, S, hd)
+    tile, split = k1.TILE, pl.keys_per_split
+    assert split > tile + 1 and pl.splits > 1
+    lens = [1, tile - 1, tile, tile + 1, split - 1, split, split + 1, S]
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    cache = torch.randn((2, 8, S, Hkv, hd), generator=g, device=cuda).to(dt)
+    q = torch.randn((8, G * Hkv, hd), generator=g, device=cuda).to(dt)
+    k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for _ in range(2):          # the second call reuses the zeroed tickets
+        got = ops.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        want = ref.decode_attention(q, k, v, lengths)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", ["ragged", "T<S", "noncausal", "window",
+                                  "unaligned_q"])
+def test_cuda_flash_attention_bf16_tensor_cores(cuda, hd, case):
+    """K2's bf16 path (tensor cores) at every head dim: ragged T and S,
+    T < S, non-causal, a window, and a q view whose data_ptr is not 16-byte
+    aligned (element loads instead of cp.async)."""
+    T, S, causal, window = {"ragged": (100, 100, True, 0),
+                            "T<S": (77, 300, True, 0),
+                            "noncausal": (50, 130, False, 0),
+                            "window": (300, 300, True, 100),
+                            "unaligned_q": (128, 128, True, 0)}[case]
+    g = torch.Generator(cuda).manual_seed(0)
+    bf = torch.bfloat16
+    if case == "unaligned_q":
+        q = torch.randn((2, 8, T, hd + 1), generator=g,
+                        device=cuda).to(bf)[..., 1:]
+        assert q.data_ptr() % 16 and q.stride(-1) == 1
+    else:
+        q = torch.randn((2, 8, T, hd), generator=g, device=cuda).to(bf)
+    k = torch.randn((2, 2, S, hd), generator=g, device=cuda).to(bf)
+    v = torch.randn((2, 2, S, hd), generator=g, device=cuda).to(bf)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOLS["bfloat16"], atol=TOLS["bfloat16"])
 
 
 @pytest.mark.cuda

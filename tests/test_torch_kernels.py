@@ -123,6 +123,101 @@ def test_decode_attention_strided_cache_views():
                                 jnp.asarray(lens.numpy())), "bfloat16")
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [
+    (4, 16, 8, 2048, 128),            # qwen3-0.6b serve
+    (4, 16, 1, 2048, 256),            # recurrentgemma-9b serve (MQA)
+    (4, 64, 4, 2048, 128),            # qwen3-moe-235b-a22b serve (G = 16)
+])
+def test_decode_plan_fills_the_card(B, H, Hkv, S, hd):
+    """K1's split over the cache gives at least 128 blocks at every serve
+    shape, keys per split a multiple of the tile, and one block per kv
+    head's whole group (the cache is read once per group)."""
+    from repro_torch.kernels import decode_attention as k1
+    pl = k1.plan(B, H, Hkv, S, hd)
+    assert pl.blocks >= 128
+    assert pl.keys_per_split % k1.TILE == 0 and pl.keys_per_split >= 64
+    assert pl.splits * pl.keys_per_split >= S > (pl.splits - 1) * \
+        pl.keys_per_split
+    assert pl.heads_per_block == H // Hkv and pl.head_groups == 1
+    assert pl.blocks == B * Hkv * pl.splits
+    assert pl.splits <= k1.MAX_SPLITS
+
+
+def _split_combine(q, k, v, lens, kps, strides=4, tile=32, batch=4):
+    """A float32 model of K1's algebra: splits of ``kps`` keys (splits at or
+    past the length skipped), each walked in tiles by ``strides`` lane
+    groups with an online softmax over batches of ``batch`` keys, the
+    groups merged by exp(m_r - max m), then the splits combined the same
+    way."""
+    B, H, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    out = np.zeros((B, H, hd), np.float32)
+    for b in range(B):
+        n = min(int(lens[b]), S)
+        for h in range(Hkv):
+            qs = q[b, h * G:(h + 1) * G] * np.float32(hd ** -0.5)
+            parts = []
+            for start in range(0, S, kps):
+                if start >= n:
+                    continue                          # an empty split
+                end = min(start + kps, n)
+                slots = []
+                for r in range(strides):
+                    m = np.full(G, -1e30, np.float32)
+                    l = np.zeros(G, np.float32)
+                    acc = np.zeros((G, hd), np.float32)
+                    for t0 in range(start, end, tile):
+                        keys = np.arange(t0 + r, min(t0 + tile, end),
+                                         strides)
+                        for j0 in range(0, len(keys), batch):
+                            kj = keys[j0:j0 + batch]
+                            s = qs @ k[b, h, kj].T
+                            m_new = np.maximum(m, s.max(1))
+                            corr = np.exp(m - m_new)
+                            p = np.exp(s - m_new[:, None])
+                            l = l * corr + p.sum(1)
+                            acc = acc * corr[:, None] + p @ v[b, h, kj]
+                            m = m_new
+                    slots.append((m, l, acc))
+                M = np.max([sl[0] for sl in slots], axis=0)
+                w = [np.exp(sl[0] - M) for sl in slots]
+                parts.append((M, sum(wi * sl[1] for wi, sl in zip(w, slots)),
+                              sum(wi[:, None] * sl[2]
+                                  for wi, sl in zip(w, slots))))
+            if not parts:
+                continue
+            M = np.max([pt[0] for pt in parts], axis=0)
+            w = [np.exp(pt[0] - M) for pt in parts]
+            den = sum(wi * pt[1] for wi, pt in zip(w, parts))
+            num = sum(wi[:, None] * pt[2] for wi, pt in zip(w, parts))
+            out[b, h * G:(h + 1) * G] = num / np.maximum(den, 1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("kps", [64, 128, 256, 512])
+@pytest.mark.parametrize("B,H,Hkv,hd", [(2, 4, 2, 32), (1, 16, 1, 64)])
+def test_decode_split_combine_algebra(kps, B, H, Hkv, hd):
+    """K1's split-and-combine algebra, in float32, against the reference
+    oracle and the Pallas kernel (interpret mode) at 1e-5, for several
+    split counts and with splits wholly past the length (lengths 1, 63,
+    65, 200, 511)."""
+    rng = np.random.default_rng(10)
+    S = 512
+    q = arr(rng, B, H, hd)
+    k = arr(rng, B, Hkv, S, hd)
+    v = arr(rng, B, Hkv, S, hd)
+    for lens in ([1, 200][:B], [63, 511][:B], [65, S][:B]):
+        lens = np.array(lens, np.int32)
+        got = _split_combine(q, k, v, lens, kps)
+        args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                jnp.asarray(lens))
+        for want in (jref.decode_attention(*args),
+                     jops.decode_attention(*args, block_k=128)):
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-5)
+
+
 @pytest.mark.parametrize("T,S,window", [(96, 96, 32), (50, 50, 64),
                                           (40, 100, 17), (130, 130, 64)])
 def test_flash_attention_window_matches_model_attention(T, S, window):
