@@ -13,7 +13,16 @@ Phases, each printed as one JSON object on its own line:
               2e-2), then times (CUDA events, median, L2 flushed before
               every launch) beside the least time the card could take and
               one PyTorch library call computing the same function, where
-              there is one.  K1 is also checked at the boundaries of its
+              there is one.  K3 is also checked with ``rows`` (the live
+              rows of each expert: none, some, all) and timed at the serve
+              shape with the rows of a seeded top-8 draw for 4 tokens
+              (the "serve, routed" rows, whose bound is the live experts'
+              bytes); the all-rows rows stay as they were.  K4 is also
+              checked at one chunk and its edges (T = 63, 64, 65) with
+              B * H = 1.  One line gives, for K3 and K4 at their path
+              shapes, the device time of each CUDA kernel that one wrapper
+              call launches (``torch.profiler``, 10 calls; K4's prefill is
+              three launches).  K1 is also checked at the boundaries of its
               split over the cache and timed at the length the serve path
               reaches (33), and one line gives the host time of one K1
               wrapper call (1,000 calls, no synchronise).
@@ -96,12 +105,17 @@ K3_PATHS = [("qwen3-moe-235b-a22b prefill", 128, 80, 4096, 1536),
             ("qwen3-moe-235b-a22b prefill", 128, 80, 1536, 4096),
             ("qwen3-moe-235b-a22b serve", 128, 4, 4096, 1536),
             ("qwen3-moe-235b-a22b serve", 128, 4, 1536, 4096)]
-# (E, C, D, F, strided x): the path shapes, then C, D and F that no tile
-# divides, C in every tile regime, and x read through a row stride
-K3_CASES = [(E, C, D, F_, False) for _, E, C, D, F_ in K3_PATHS] + [
-    (8, 80, 4100, 1540, False), (8, 4, 4100, 1540, True),
-    (6, 37, 1000, 200, True), (3, 1, 64, 8, False), (5, 13, 300, 129, False),
-    (4, 130, 520, 260, False)]
+# (E, C, D, F, strided x, rows): the path shapes, then C, D and F that no
+# tile divides, C in every tile regime, x read through a row stride, and
+# live rows per expert (None: all C; "partial": 0, 1, C - 1, C, ... by
+# expert; "zero": none)
+K3_CASES = [(E, C, D, F_, False, None) for _, E, C, D, F_ in K3_PATHS] + [
+    (8, 80, 4100, 1540, False, None), (8, 4, 4100, 1540, True, None),
+    (6, 37, 1000, 200, True, None), (3, 1, 64, 8, False, None),
+    (5, 13, 300, 129, False, None), (4, 130, 520, 260, False, None),
+    (128, 80, 4096, 1536, False, "partial"), (8, 4, 4100, 1540, True,
+                                              "partial"),
+    (6, 37, 1000, 200, True, "zero"), (4, 130, 520, 260, False, "partial")]
 
 # (model, prefill length, kernel launches per prefill / per decode tick,
 # the dtype the kernel path is held to the plain path in, depth cut or
@@ -171,7 +185,11 @@ def main() -> int:
             "registers": sorted({int(r) for r in
                                  re.findall(r"Used (\d+) registers", log)}),
             "spill_bytes": max([int(s) for s in re.findall(
-                r"(\d+) bytes spill stores", log)] or [0])}
+                r"(\d+) bytes spill stores", log)] or [0]),
+            # each kernel's entry function (mangled) and its registers
+            "entries": {f: int(r) for f, r in re.findall(
+                r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
+                log, re.S)}}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": sorted(libs), "ptxas": ptxas})
 
@@ -182,9 +200,10 @@ def main() -> int:
     for arch, T, per_prefill, per_tick, held_in, cut in MODELS:
         launches = model_phases(torch, dev, arch, T, per_prefill, per_tick,
                                 held_in, cut)
-        for row in rows:
-            if row["path"] in launches:
-                row["launches"] = launches[row["path"]][row["name"]]
+        for row in rows:                 # "<model> serve, routed": serve
+            path = row["path"].split(",")[0]
+            if path in launches:
+                row["launches"] = launches[path][row["name"]]
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -259,6 +278,21 @@ def kernel_phase(torch, dev) -> list[dict]:
         u = rand(H, M) * 0.1
         S0 = rand(B, H, M, M) * 0.5 if with_s0 else None
         return r, k, v, logw, u, S0
+
+    def k3_rows(E, C, kind):
+        """(E,) int32 live rows: None (all C), "partial", "zero", or
+        "routed": each expert's tokens among 4 that each pick 8 of the E
+        experts (a seeded draw), at most C."""
+        if kind is None:
+            return None
+        if kind == "routed":
+            g = torch.Generator(dev).manual_seed(3)
+            ids = torch.randn((4, E), generator=g, device=dev).topk(8).indices
+            n = torch.bincount(ids.reshape(-1), minlength=E).clamp(max=C)
+            return n.to(torch.int32)
+        n = ([0] * E if kind == "zero" else
+             [(0, 1, C - 1, C, C // 2, 3, C // 3, 2)[e % 8] for e in range(E)])
+        return torch.tensor(n, dtype=torch.int32, device=dev)
 
     def k3_inputs(E, C, D, F_, dtype, strided=False):
         """x (E,C,D), or a view of a wider buffer when ``strided``, and w
@@ -337,19 +371,27 @@ def kernel_phase(torch, dev) -> list[dict]:
                                  pos, window=window).transpose(1, 2)
                 check("flash_attention", {**case, "vs": "layers.attention"},
                       got, want, tol)
-        for B, T, with_s0 in ((1, 1024, False), (1, 1000, False),
-                              (4, 1, True)):
-            ins = k4_inputs(B, 40, T, 64, dtype, with_s0)
-            check("rwkv_scan", {"dtype": dt, "B": B, "H": 40, "T": T,
+        for B, H, T, with_s0 in ((1, 40, 1024, False), (1, 40, 1000, False),
+                                 (4, 40, 1, True), (1, 1, 63, False),
+                                 (1, 1, 64, True), (1, 1, 65, True)):
+            ins = k4_inputs(B, H, T, 64, dtype, with_s0)
+            check("rwkv_scan", {"dtype": dt, "B": B, "H": H, "T": T,
                                 "M": 64, "S0": with_s0},
                   ops.rwkv_scan(*ins), ref.rwkv_scan(*ins), TOLS["float32"])
-        # K3: the four path shapes, then ragged C, D and F and strided x
-        for E, C, D, F_, strided in K3_CASES:
+        # K3: the four path shapes, then ragged C, D and F, strided x and
+        # live rows
+        for E, C, D, F_, strided, kind in K3_CASES:
             x, w = k3_inputs(E, C, D, F_, dtype, strided)
+            r = k3_rows(E, C, kind)
+            got = ops.moe_gmm(x, w, r)
+            if r is not None:             # the rows past rows[e]: zeros
+                live = torch.arange(C, device=dev)[None, :] < r[:, None]
+                need(not got.masked_select(~live[..., None]).any(),
+                     f"moe_gmm rows {kind}: nonzero rows past rows[e]")
             check("moe_gmm", {"dtype": dt, "E": E, "C": C, "D": D, "F": F_,
-                              "strided_x": strided},
-                  ops.moe_gmm(x, w), ref.moe_gmm(x, w), tol)
-            del x, w
+                              "strided_x": strided, "rows": kind},
+                  got, ref.moe_gmm(x, w, r), tol)
+            del x, w, got
     for B, T, D, a_val in ((1, 4096, 4096, None), (2, 1000, 4100, None),
                            (4, 1, 4096, None), (1, 4096, 4096, 1e-4)):
         ins = k5_inputs(B, T, D, a_val)
@@ -361,6 +403,22 @@ def kernel_phase(torch, dev) -> list[dict]:
     # -- times at the main paths' shapes -------------------------------------
     bf = torch.bfloat16
     rows = []
+    traces = []
+
+    def trace(name, path, fn, calls: int = 10):
+        """Device time and count, per wrapper call, of each CUDA kernel that
+        ``fn`` launches, from torch.profiler over ``calls`` calls."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        traces.append({"name": name, "path": path, "kernels": [
+            {"kernel": e.key[:90], "us_per_call": e.device_time_total / calls,
+             "launches_per_call": e.count / calls}
+            for e in prof.key_averages() if e.device_time_total > 0]})
 
     def row(name, path, shape, ins, kernel, plain, library, nbytes, flops,
             dtype, replaces):
@@ -471,13 +529,26 @@ def kernel_phase(torch, dev) -> list[dict]:
             sdpa, 2 * (2 * H * T * hd + 2 * Hkv * T * hd),
             4 * pairs * H * hd, "bfloat16", K2)
 
-    for path, E, C, D, F_ in K3_PATHS:
+    # all C rows of every expert (rows=None), then the serve
+    # path's routed decode: the rows of a seeded top-8 draw for 4 tokens,
+    # bound by the live experts' bytes; torch.bmm computes every expert
+    for path, E, C, D, F_ in K3_PATHS + [
+            ("qwen3-moe-235b-a22b serve, routed", *p[1:]) for p in K3_PATHS
+            if "serve" in p[0]]:
         x, w = k3_inputs(E, C, D, F_, bf)
-        row("moe_gmm", path,
-            {"E": E, "C": C, "D": D, "F": F_, "dtype": "bfloat16"}, (x, w),
-            ops.moe_gmm, ref.moe_gmm, torch.bmm,
-            2 * (E * C * D + E * D * F_ + E * C * F_), 2 * E * C * D * F_,
-            "bfloat16", "src/repro/kernels/moe_gmm.py:42")
+        shape = {"E": E, "C": C, "D": D, "F": F_, "dtype": "bfloat16"}
+        r = k3_rows(E, C, "routed" if "routed" in path else None)
+        live, n_rows = E, E * C
+        if r is not None:
+            live, n_rows = int((r > 0).sum()), int(r.sum())
+            shape.update(rows="routed", live_experts=live, live_rows=n_rows)
+        row("moe_gmm", path, shape, (x, w, r), ops.moe_gmm, ref.moe_gmm,
+            lambda x, w, r: torch.bmm(x, w),
+            2 * (n_rows * D + live * D * F_ + E * C * F_)
+            + (0 if r is None else 4 * E),
+            2 * n_rows * D * F_, "bfloat16", "src/repro/kernels/moe_gmm.py:42")
+        if D == 4096:                      # gate/up: prefill and routed
+            trace("moe_gmm", path, lambda: ops.moe_gmm(x, w, r))
         del x, w
 
     for path, (B, T, with_s0) in (("rwkv6-3b prefill", (1, 1024, False)),
@@ -496,6 +567,7 @@ def kernel_phase(torch, dev) -> list[dict]:
             + (2 if with_s0 else 1) * B * H * M * M * 4,
             2 * B * H * fmas, "bfloat16",
             "src/repro/kernels/rwkv_scan.py:61")
+        trace("rwkv_scan", path, lambda: ops.rwkv_scan(*ins))
 
     for path, (B, T) in (("recurrentgemma-9b prefill", (1, 4096)),
                          ("recurrentgemma-9b serve", (4, 1))):
@@ -506,6 +578,7 @@ def kernel_phase(torch, dev) -> list[dict]:
             3 * B * T * D * 4, 2 * B * T * D, "float32",
             "src/repro/kernels/rglru_scan.py:42")
 
+    emit({"phase": "kernel_traces", "traces": traces})
     emit({"phase": "kernels", "checks": checks,
           "times": [{k: r[k] for k in ("name", "path", "shape", "ms",
                                         "plain_ms", "library_ms",

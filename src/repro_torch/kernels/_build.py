@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``.  The build happens at first use, into
 ``build/repro_torch_kernels/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is not.  ``build_all`` starts one ``nvcc`` per source
+keyed by a hash of the source, the ``csrc/`` headers it includes and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+not.  ``build_all`` starts one ``nvcc`` per source
 at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,10 +44,27 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'#include\s+"([^"]+)"')
+
+
+def _sources(name: str) -> list[bytes]:
+    """The bytes of ``csrc/<name>.cu`` and of every ``csrc/`` header it
+    includes, directly or through another header."""
+    files, out = [f"{name}.cu"], []
+    for f in files:                            # grows as headers are found
+        text = (CSRC / f).read_bytes()
+        out.append(text)
+        files += [h.decode() for h in _INCLUDE.findall(text)
+                  if h.decode() not in files]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256()
+    for text in _sources(name):
+        h.update(text)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:

@@ -57,6 +57,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -233,61 +234,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 128;   // 4 warps, 16 query rows each
 constexpr int kTcBQ = 64;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// c += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// Element offset of chunk c (8 bf16) of row r in a swizzled tile with CPR
-// 16-byte chunks per row.
-template <int CPR>
-__device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (CPR >= 8) {
-    return (r * CPR + (c ^ (r & 7))) * 8;
-  } else {
-    static_assert(CPR == 4, "hd 32: 4 chunks per row");
-    return (r * CPR + (c ^ ((r >> 1) & 3))) * 8;
-  }
-}
 
 // Copy ROWS rows of HD bf16 (rows row0 + r of g, row stride rs) into the
 // swizzled tile s: cp.async where a chunk is 16-byte aligned, element
@@ -518,20 +464,6 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-}
-
-// Set a kernel's dynamic shared-memory limit once per device: done keeps
-// one bit per device, in the caller's instantiation.
-inline cudaError_t smem_once(const void* fn, size_t bytes, unsigned* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (bit && (*done & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) *done |= bit;
-  return err;
 }
 
 template <int HD>

@@ -17,44 +17,73 @@
 //
 // What bounds it on the H100: bytes.  A prefill of B=1, H=40, T=1024, M=64
 // reads bf16 r/k/v and float32 logw and writes float32 o (~38 MB) for
-// ~0.8 GFLOP, and a decode step reads and writes S (float32, 64 x 64 per
-// head), both far below the card's ~295 flop/byte ridge.
+// ~1 GFLOP, and a decode step reads and writes S (float32, 64 x 64 per
+// head), both far below the card's float32 ridge of ~20 flop/byte.  The
+// work is small (~0.015 ms at the float32 CUDA-core rate); what a
+// sequential walk over the chunks lacks is parallelism, so the products
+// stay float32 on CUDA cores and the design spreads the work.
 //
-// Design (simple and right first): one block of 256 threads per (b, h).
-// S (M x M float32) stays in shared memory for the whole sequence; the
-// chunks run in order inside the block.  A chunk's r, k, v and logw are
-// staged in shared memory as float32 (rows padded by one word so that the
-// threads of a warp reading different rows hit different banks); one
-// thread per column takes the cumsum and the decayed q_in / k_in / k_tail;
-// the scores, the output and the state update are each one loop in which
-// a thread owns a few (row, column) elements and sums over 64 on CUDA
-// cores.  Only the n valid rows of a chunk are computed, so a decode step
-// costs one row.  Every input is read through its strides (unit stride on
-// the last dim), so the model's (B, T, H, M) projections are passed as
-// permuted views and o is written into a (B, T, H, M) buffer, never copied.
-// With B * H = 40 blocks for 132 SMs at the prefill shape this is far from
-// the byte bound; splitting the value columns over blocks and tensor-core
-// products are the next steps.
+// Prefill (T > 1): the standard chunk-parallel decomposition of linear
+// attention, three launches per call, all float32 on CUDA cores:
+//   1. chunk_state, one 256-thread block per (tile of JT value columns,
+//      chunk, b * H + h), all in parallel: the chunk's state delta
+//      k_tail^T v (64 x JT) and decay exp(cs_last) into float32 scratch.
+//   2. state_scan, one thread per (b * H + h, state element): walks the
+//      chunks in order, S_{c+1} = exp(cs_last,c) * S_c + delta_c from S0,
+//      overwriting each delta with the state at its chunk's start, and
+//      writes the final S.  The deltas are read 16 chunks ahead.
+//   3. chunk_out, one block per (column tile, chunk, b * H + h): the
+//      chunk-local output tril(q_in k_in^T, -1) v + (r . u . k) v plus the
+//      cross term q_in S_c from the scratch, written once into o.
+// Output column j and state column S[:, j] depend only on v[:, j], so a
+// block takes JT of the 64 value columns; q_in, k_in, the scores and the
+// cumsum are recomputed in each column tile.  JT is 64 when the chunks
+// alone give two blocks per SM (B * H * chunks >= 264, the rwkv6-3b
+// prefill: 640 blocks), else 32 or 16.  A block issues all its loads
+// before it stores any to shared memory, so it waits for device memory
+// once.  A chunk's r and k are staged as float32 rows of 68 words
+// (16-byte aligned, so the score and output products read float4s); the
+// scores then take k_in's place.  The cumsum splits each column into four
+// 16-step segments, one thread each, whose totals pass through shared
+// memory, so all 256 threads take part; logw goes straight from device
+// memory to the registers of its column's threads, and the decays are
+// applied in the same pass.  The score and output products keep 4 x 4
+// (or TR x 4) register tiles; each warp owns 8 consecutive rows, so the
+// score columns and the sum over s past a warp's last row are skipped:
+// the warps of lower rows finish early and leave the SM to the others.  Rows past a ragged T are zeros (logw 0, so cs_last is the last
+// valid row's) and never stored; heads smaller than 64 are zero-padded to
+// 64.  What holds the prefill back on the H100 (PERF.md): chunk_out's
+// blocks load, then compute, in lockstep waves, so device memory and the
+// CUDA cores take turns; a persistent chunk_out that loads the next tile
+// while it computes this one is the next step.
+//
+// Decode (T == 1): one pass, no chunk staging, o_j = sum_m r_m (S[m,j] +
+// u_m k_m v_j) and S'[m,j] = exp(logw_m) S[m,j] + k_m v_j.  One block of
+// 256 threads per (16 value columns, b * H + h), 640 blocks at B = 4,
+// H = 40; each thread reads and writes 4 columns of one row of S with
+// 16-byte accesses, and the sum over m is a shuffle within the warp and
+// eight partials through shared memory.
+//
+// Every input is read through its strides (unit stride on the last dim),
+// so the model's (B, T, H, M) projections are passed as permuted views and
+// o is written into a (B, T, H, M) buffer, never copied.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kC = 64;          // chunk: the model's CHUNK
-constexpr int kMaxM = 64;       // head size
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kC = 64;                 // chunk: the model's CHUNK
+constexpr int kM = 64;                 // head size, padded
+constexpr int kP = kM + 4;             // row stride of a staged [t][m] tile
+constexpr int kSeg = kThreads / kM;    // cumsum segments per column
+constexpr int kSegLen = kC / kSeg;     // steps per segment
+constexpr int kState = kM * kM;        // elements of one state
+constexpr int kDecJT = 16;             // decode: value columns per block
 
 // Element strides, in the order of the C interface below.
 enum { R_SB, R_SH, R_ST, K_SB, K_SH, K_ST, V_SB, V_SH, V_ST, W_SB, W_SH, W_ST,
@@ -63,155 +92,542 @@ struct Strides {
   long long s[kNStrides];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rwkv_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ logw,
-                 const float* __restrict__ u, const float* __restrict__ s0,
-                 float* __restrict__ o, float* __restrict__ s_out, int H,
-                 int Tn, int M, Strides st) {
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nwarps = kThreads / 32;
-  const int MP = M + 1;
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [kC][MP]  r, then q_in
-  float* k_s = q_s + kC * MP;         // [kC][MP]  k, then k_in
-  float* kt_s = k_s + kC * MP;        // [kC][MP]  k * exp(cs_last - cs)
-  float* v_s = kt_s + kC * MP;        // [kC][MP]  v
-  float* w_s = v_s + kC * MP;         // [kC][MP]  logw
-  float* sc_s = w_s + kC * MP;        // [kC][kC + 1] scores
-  float* S_s = sc_s + kC * (kC + 1);  // [M][MP]   state
-  float* u_s = S_s + M * MP;          // [M]
-  float* dec_s = u_s + M;             // [M]       exp(cs_last)
-  float* dg_s = dec_s + M;            // [kC]      bonus r . u . k
-
-  const T* rb = r + b * st.s[R_SB] + h * st.s[R_SH];
-  const T* kb = k + b * st.s[K_SB] + h * st.s[K_SH];
-  const T* vb = v + b * st.s[V_SB] + h * st.s[V_SH];
-  const float* wb = logw + b * st.s[W_SB] + h * st.s[W_SH];
-  float* ob = o + b * st.s[O_SB] + h * st.s[O_SH];
-
-  for (int i = tid; i < M * M; i += kThreads) {
-    const int m = i / M, j = i - m * M;
-    S_s[m * MP + j] = s0 ? s0[b * st.s[S0_SB] + h * st.s[S0_SH] + i] : 0.f;
+__device__ __forceinline__ void store4(float* p, float4 v, int n) {
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    if (n > 0) p[0] = v.x;
+    if (n > 1) p[1] = v.y;
+    if (n > 2) p[2] = v.z;
+    if (n > 3) p[3] = v.w;
   }
-  for (int m = tid; m < M; m += kThreads) u_s[m] = u[h * M + m];
+}
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+__device__ __forceinline__ float f4(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
-  for (int t0 = 0; t0 < Tn; t0 += kC) {
-    const int n = min(kC, Tn - t0);     // valid rows of this chunk
-    __syncthreads();                     // previous chunk fully consumed
-    for (int i = tid; i < n * M; i += kThreads) {
-      const int t = i / M, m = i - t * M;
-      const long long tt = t0 + t;
-      q_s[t * MP + m] = to_f32(rb[tt * st.s[R_ST] + m]);
-      k_s[t * MP + m] = to_f32(kb[tt * st.s[K_ST] + m]);
-      v_s[t * MP + m] = to_f32(vb[tt * st.s[V_ST] + m]);
-      w_s[t * MP + m] = wb[tt * st.s[W_ST] + m];
+// The raw bits of 4 consecutive elements: a float4, or four bf16 in a
+// uint2; unpack() makes the floats.
+template <typename T> struct Raw4;
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+__device__ __forceinline__ float4 unpack(float4 v) { return v; }
+__device__ __forceinline__ float4 unpack(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+// The first n of the 4 elements at p (the rest zeros), element by element.
+__device__ __forceinline__ float4 raw4_tail(const float* p, int n) {
+  return make_float4(n > 0 ? p[0] : 0.f, n > 1 ? p[1] : 0.f,
+                     n > 2 ? p[2] : 0.f, n > 3 ? p[3] : 0.f);
+}
+__device__ __forceinline__ uint2 raw4_tail(const __nv_bfloat16* p, int n) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  unsigned e[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = i < n ? q[i] : 0u;
+  return make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+
+// Four elements at p, the first n of them inside the tensor, as floats:
+// one vector load where aligned and whole, else element loads.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int n) {
+  using R = typename Raw4<T>::type;
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(p) & (sizeof(R) - 1)) == 0)
+    return unpack(*reinterpret_cast<const R*>(p));
+  return unpack(raw4_tail(p, n));
+}
+
+// Rows 0 .. kC - 1 (n of them valid) and columns col0 .. col0 + W of one
+// (b, h, chunk) slice of a (T, M) input (row stride st).  load() puts the
+// raw bits in registers and store() writes them to shared memory as
+// float32, so all of a thread's loads are in flight before the first is
+// used: a conversion between two loads would make the second wait for the
+// first.  Where every chunk of 4 is aligned and whole (M a multiple of 4,
+// the usual case, decided once per block) the loads are plain vector
+// loads under a predicate; else element loads.  Rows past n and columns
+// past M are zeros.
+template <typename T, int W>
+struct Staged {
+  using R = typename Raw4<T>::type;
+  static constexpr int Q = W / 4;                 // chunks of 4 per row
+  static constexpr int N = kC * Q / kThreads;     // chunks per thread
+  static_assert(N >= 1 && kC * Q % kThreads == 0, "tile shape");
+  R v[N];
+  __device__ __forceinline__ void load(const T* src, long long st, int n,
+                                       int M, int col0) {
+    const bool vec = M % 4 == 0 && st % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(src) & (sizeof(R) - 1)) == 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int t = i / Q, c = col0 + (i % Q) * 4;
+      const T* p = src + t * st + c;
+      if (vec)
+        v[j] = t < n && c < M ? *reinterpret_cast<const R*>(p) : R{};
+      else
+        v[j] = t < n ? raw4_tail(p, M - c) : R{};
     }
-    __syncthreads();
-    // bonus on the diagonal: one warp per row
-    for (int t = warp; t < n; t += nwarps) {
-      float s = 0.f;
-      for (int m = lane; m < M; m += 32)
-        s += q_s[t * MP + m] * u_s[m] * k_s[t * MP + m];
-      s = warp_sum(s);
-      if (lane == 0) dg_s[t] = s;
+  }
+  __device__ __forceinline__ void store(float* dst, int ld) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      *reinterpret_cast<float4*>(dst + (i / Q) * ld + (i % Q) * 4) =
+          unpack(v[j]);
     }
-    __syncthreads();
-    // one thread per column: cumsum of logw, decayed q_in / k_in / k_tail
-    for (int m = tid; m < M; m += kThreads) {
-      float cs = 0.f;
-      for (int t = 0; t < n; ++t) {
-        const float lw = w_s[t * MP + m];
-        q_s[t * MP + m] *= expf(cs);          // r * exp(cs_t - logw_t)
-        cs += lw;
-        w_s[t * MP + m] = cs;                 // keep cs_t for k_tail
-        kt_s[t * MP + m] = k_s[t * MP + m];
-        k_s[t * MP + m] *= expf(-cs);         // k * exp(-cs_t)
+  }
+};
+
+// Column m of logw over segment seg's kSegLen rows of the chunk, straight
+// from device memory into registers (zeros past n or M): the 64 threads of
+// a segment read each row's 64 floats together.
+__device__ __forceinline__ void seg_logw(float (&lw)[kSegLen], const float* wb,
+                                         long long st, int n, int M, int m,
+                                         int seg) {
+#pragma unroll
+  for (int t = 0; t < kSegLen; ++t) {
+    const int row = seg * kSegLen + t;
+    lw[t] = row < n && m < M ? wb[row * st + m] : 0.f;
+  }
+}
+
+// Register tile of an (kM rows) x JT product: thread tid owns the TR
+// consecutive rows rg * TR .. + TR - 1 and the 4 columns 4 cg .. 4 cg + 3,
+// so warp w owns rows 8 w .. 8 w + 7 whatever JT is.
+template <int JT>
+struct Tile {
+  static constexpr int CG = JT / 4, RG = kThreads / CG, TR = kM / RG;
+  int rg, cg;
+  __device__ Tile() : rg(threadIdx.x / CG), cg(threadIdx.x % CG) {}
+  __device__ int row(int a) const { return rg * TR + a; }
+};
+
+// TR consecutive floats at p (16-, 8- or 4-byte aligned by TR).
+template <int TR>
+__device__ __forceinline__ void ld_rows(const float* p, float* x) {
+  if constexpr (TR == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (TR == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// ---------------------------------------------------------------------------
+//  prefill 1: each chunk's state delta and decay
+// ---------------------------------------------------------------------------
+template <typename T, int JT>
+__global__ void __launch_bounds__(kThreads)
+chunk_state(const T* __restrict__ k, const T* __restrict__ v,
+            const float* __restrict__ logw, float* __restrict__ buf,
+            float* __restrict__ dec, int H, int Tn, int M, Strides st) {
+  const int j0 = blockIdx.x * JT, c = blockIdx.y, bh = blockIdx.z;
+  const int nc = gridDim.y;
+  const int b = bh / H, h = bh - b * H;
+  const int t0 = c * kC, n = min(kC, Tn - t0);
+
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);   // [kC][kP] k, then k_tail
+  float* v_s = k_s + kC * kP;                      // [kC][JT]
+  float* tot = v_s + kC * JT;                      // [kSeg][kM]
+
+  // cumsum of logw down each column in four segments (this thread: column
+  // m, segment seg), the segments' totals through shared memory
+  const int m = threadIdx.x % kM, seg = threadIdx.x / kM;
+  float lw[kSegLen];
+  seg_logw(lw, logw + b * st.s[W_SB] + h * st.s[W_SH] + t0 * st.s[W_ST],
+           st.s[W_ST], n, M, m, seg);
+  {
+    Staged<T, kM> sk;
+    Staged<T, JT> sv;
+    sk.load(k + b * st.s[K_SB] + h * st.s[K_SH] + t0 * st.s[K_ST], st.s[K_ST],
+            n, M, 0);
+    sv.load(v + b * st.s[V_SB] + h * st.s[V_SH] + t0 * st.s[V_ST], st.s[V_ST],
+            n, M, j0);
+    sk.store(k_s, kP);
+    sv.store(v_s, JT);
+  }
+  float part = 0.f;
+#pragma unroll
+  for (int t = 0; t < kSegLen; ++t) part += lw[t];
+  tot[seg * kM + m] = part;
+  __syncthreads();
+  float run = 0.f, last = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSeg; ++q) {
+    const float x = tot[q * kM + m];
+    if (q < seg) run += x;
+    last += x;
+  }
+  float* kc = k_s + seg * kSegLen * kP + m;
+#pragma unroll
+  for (int t = 0; t < kSegLen; ++t) {
+    run += lw[t];
+    kc[t * kP] *= expf(last - run);        // k * exp(cs_last - cs)
+  }
+  if (blockIdx.x == 0 && seg == 0) dec[(long long)bh * nc * kM + c * kM + m] =
+      expf(last);
+  __syncthreads();
+
+  // delta[m][j] = sum_t k_tail[t][m] v[t][j]
+  const Tile<JT> tl;
+  float4 acc[Tile<JT>::TR];
+#pragma unroll
+  for (int a = 0; a < Tile<JT>::TR; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < n; ++t) {
+    const float4 vv = *reinterpret_cast<const float4*>(v_s + t * JT + 4 * tl.cg);
+    float kt[Tile<JT>::TR];
+    ld_rows<Tile<JT>::TR>(k_s + t * kP + tl.row(0), kt);
+#pragma unroll
+    for (int a = 0; a < Tile<JT>::TR; ++a) fma4(acc[a], kt[a], vv);
+  }
+  float* out = buf + ((long long)bh * nc + c) * kState + j0 + 4 * tl.cg;
+#pragma unroll
+  for (int a = 0; a < Tile<JT>::TR; ++a)
+    *reinterpret_cast<float4*>(out + tl.row(a) * kM) = acc[a];
+}
+
+// ---------------------------------------------------------------------------
+//  prefill 2: the states at the chunk starts, in order
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+state_scan(float* __restrict__ buf, const float* __restrict__ dec,
+           const float* __restrict__ s0, float* __restrict__ s_out, int BH,
+           int H, int nc, int M, Strides st) {
+  constexpr int kAhead = 16;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int bh = (int)(idx / kState), e = (int)(idx % kState);
+  if (bh >= BH) return;
+  const int b = bh / H, h = bh - b * H;
+  const int m = e / kM, j = e % kM;
+  const bool in = m < M && j < M;
+  float S = s0 && in ? s0[b * st.s[S0_SB] + h * st.s[S0_SH] + m * M + j] : 0.f;
+  float* p = buf + (long long)bh * nc * kState + e;
+  const float* a = dec + (long long)bh * nc * kM + m;
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    float d[kAhead], w[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 + i < nc) {
+        d[i] = p[(long long)(c0 + i) * kState];
+        w[i] = a[(c0 + i) * kM];
       }
-      for (int t = 0; t < n; ++t)
-        kt_s[t * MP + m] *= expf(cs - w_s[t * MP + m]);
-      dec_s[m] = expf(cs);
-    }
-    __syncthreads();
-    // scores: strictly lower triangle, the bonus on the diagonal
-    for (int i = tid; i < n * kC; i += kThreads) {
-      const int t = i / kC, s = i - t * kC;
-      float val = 0.f;
-      if (s < t) {
-        const float* qr = q_s + t * MP;
-        const float* kr = k_s + s * MP;
-        for (int m = 0; m < M; ++m) val = fmaf(qr[m], kr[m], val);
-      } else if (s == t) {
-        val = dg_s[t];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i)
+      if (c0 + i < nc) {
+        p[(long long)(c0 + i) * kState] = S;    // the state at chunk start
+        S = fmaf(w[i], S, d[i]);
       }
-      sc_s[t * (kC + 1) + s] = val;
-    }
-    __syncthreads();
-    // o = scores @ v + q_in @ S   (S as it was at the chunk start)
-    for (int i = tid; i < n * M; i += kThreads) {
-      const int t = i / M, j = i - t * M;
-      const float* sr = sc_s + t * (kC + 1);
-      const float* qr = q_s + t * MP;
-      float acc = 0.f;
-      for (int s = 0; s <= t; ++s) acc = fmaf(sr[s], v_s[s * MP + j], acc);
-      for (int m = 0; m < M; ++m) acc = fmaf(qr[m], S_s[m * MP + j], acc);
-      ob[(long long)(t0 + t) * st.s[O_ST] + j] = acc;
-    }
-    __syncthreads();
-    // S = exp(cs_last) S + k_tail^T v
-    for (int i = tid; i < M * M; i += kThreads) {
-      const int m = i / M, j = i - m * M;
-      float acc = dec_s[m] * S_s[m * MP + j];
-      for (int t = 0; t < n; ++t)
-        acc = fmaf(kt_s[t * MP + m], v_s[t * MP + j], acc);
-      S_s[m * MP + j] = acc;
-    }
+  }
+  if (in) s_out[b * st.s[S_SB] + h * st.s[S_SH] + m * M + j] = S;
+}
+
+// ---------------------------------------------------------------------------
+//  prefill 3: each chunk's output
+// ---------------------------------------------------------------------------
+template <typename T, int JT>
+__global__ void __launch_bounds__(kThreads)
+chunk_out(const T* __restrict__ r, const T* __restrict__ k,
+          const T* __restrict__ v, const float* __restrict__ logw,
+          const float* __restrict__ u, const float* __restrict__ buf,
+          float* __restrict__ o, int H, int Tn, int M, Strides st) {
+  const int j0 = blockIdx.x * JT, c = blockIdx.y, bh = blockIdx.z;
+  const int nc = gridDim.y;
+  const int b = bh / H, h = bh - b * H;
+  const int t0 = c * kC, n = min(kC, Tn - t0);
+
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // [kC][kP] r, then q_in
+  float* k_s = q_s + kC * kP;                      // [kC][kP] k, k_in, scores
+  float* v_s = k_s + kC * kP;                      // [kC][JT]
+  float* S_s = v_s + kC * JT;                      // [kM][JT] S at the start
+  float* u_s = S_s + kM * JT;                      // [kM]
+  float* dg = u_s + kM;                            // [kC] bonus r . u . k
+  float* tot = dg + kC;                            // [kSeg][kM]
+
+  // the cumsum of logw as in chunk_state
+  const int m = threadIdx.x % kM, seg = threadIdx.x / kM;
+  float lw[kSegLen];
+  seg_logw(lw, logw + b * st.s[W_SB] + h * st.s[W_SH] + t0 * st.s[W_ST],
+           st.s[W_ST], n, M, m, seg);
+  {
+    Staged<T, kM> sr, sk;
+    Staged<T, JT> sv;
+    Staged<float, JT> ss;
+    sr.load(r + b * st.s[R_SB] + h * st.s[R_SH] + t0 * st.s[R_ST], st.s[R_ST],
+            n, M, 0);
+    sk.load(k + b * st.s[K_SB] + h * st.s[K_SH] + t0 * st.s[K_ST], st.s[K_ST],
+            n, M, 0);
+    sv.load(v + b * st.s[V_SB] + h * st.s[V_SH] + t0 * st.s[V_ST], st.s[V_ST],
+            n, M, j0);
+    ss.load(buf + ((long long)bh * nc + c) * kState, kM, kM, kM, j0);
+    const float uu = threadIdx.x < M ? u[h * M + threadIdx.x] : 0.f;
+    sr.store(q_s, kP);
+    sk.store(k_s, kP);
+    sv.store(v_s, JT);
+    ss.store(S_s, JT);
+    if (threadIdx.x < kM) u_s[threadIdx.x] = uu;
+  }
+  float part = 0.f;
+#pragma unroll
+  for (int t = 0; t < kSegLen; ++t) part += lw[t];
+  tot[seg * kM + m] = part;
+  __syncthreads();
+
+  // the bonus on the diagonal, one warp per row, before q and k decay
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < kC; t += kThreads / 32) {
+    float s = 0.f;
+    for (int mm = lane; mm < kM; mm += 32)
+      s += q_s[t * kP + mm] * u_s[mm] * k_s[t * kP + mm];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) dg[t] = s;
   }
   __syncthreads();
-  float* sb = s_out + b * st.s[S_SB] + h * st.s[S_SH];
-  for (int i = tid; i < M * M; i += kThreads) {
-    const int m = i / M, j = i - m * M;
-    sb[i] = S_s[m * MP + j];
+  float run = 0.f;
+  for (int q = 0; q < seg; ++q) run += tot[q * kM + m];
+  float* qc = q_s + seg * kSegLen * kP + m;
+  float* kc = k_s + seg * kSegLen * kP + m;
+#pragma unroll
+  for (int t = 0; t < kSegLen; ++t) {
+    qc[t * kP] *= expf(run);               // r * exp(cs - logw)
+    run += lw[t];
+    kc[t * kP] *= expf(-run);              // k * exp(-cs)
   }
+  __syncthreads();
+
+  // scores[t][s] = q_in[t] . k_in[s] for s < t, the bonus for s == t,
+  // over k_in once every thread has read it
+  // (thread: rows 4 tg .. 4 tg + 3, columns sg + 16 bb; the columns past
+  // its last row are skipped, so a warp's work grows with its rows)
+  {
+    const int tg = threadIdx.x / 16, sg = threadIdx.x % 16;
+    const int nb = (4 * tg + 3) / 16 + 1;       // column blocks it needs
+    float sc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) sc[a][bb] = 0.f;
+    for (int mm = 0; mm < kM; mm += 4) {
+      float4 qa[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        qa[a] = *reinterpret_cast<const float4*>(q_s + (4 * tg + a) * kP + mm);
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        if (bb < nb) {
+          const float4 kb =
+              *reinterpret_cast<const float4*>(k_s + (sg + 16 * bb) * kP + mm);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) sc[a][bb] = dot4(qa[a], kb, sc[a][bb]);
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int t = 4 * tg + a, s = sg + 16 * bb;
+        k_s[t * kP + s] = s < t ? sc[a][bb] : s == t ? dg[t] : 0.f;
+      }
+  }
+  __syncthreads();
+
+  // o = scores @ v + q_in @ S
+  const Tile<JT> tl;
+  constexpr int TR = Tile<JT>::TR;
+  float4 acc[TR];
+#pragma unroll
+  for (int a = 0; a < TR; ++a) acc[a] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // scores of row t are zero past s = t: stop at the thread's last row
+  const int s_end = min((n + 3) & ~3, (tl.row(TR - 1) + 4) & ~3);
+  for (int s = 0; s < s_end; s += 4) {
+    float4 vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      vv[i] = *reinterpret_cast<const float4*>(v_s + (s + i) * JT + 4 * tl.cg);
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      const float4 p = *reinterpret_cast<const float4*>(k_s + tl.row(a) * kP + s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fma4(acc[a], f4(p, i), vv[i]);
+    }
+  }
+  for (int mm = 0; mm < kM; mm += 4) {
+    float4 sv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sv[i] = *reinterpret_cast<const float4*>(S_s + (mm + i) * JT + 4 * tl.cg);
+#pragma unroll
+    for (int a = 0; a < TR; ++a) {
+      const float4 q = *reinterpret_cast<const float4*>(q_s + tl.row(a) * kP + mm);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fma4(acc[a], f4(q, i), sv[i]);
+    }
+  }
+  float* ob = o + b * st.s[O_SB] + h * st.s[O_SH];
+  const int j = j0 + 4 * tl.cg;
+#pragma unroll
+  for (int a = 0; a < TR; ++a) {
+    const int t = tl.row(a);
+    if (t < n) store4(ob + (long long)(t0 + t) * st.s[O_ST] + j, acc[a], M - j);
+  }
+}
+
+// ---------------------------------------------------------------------------
+//  decode (T == 1): one pass over S
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rwkv_decode(const T* __restrict__ r, const T* __restrict__ k,
+            const T* __restrict__ v, const float* __restrict__ logw,
+            const float* __restrict__ u, const float* __restrict__ s0,
+            float* __restrict__ o, float* __restrict__ s_out, int H, int M,
+            Strides st) {
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int m = threadIdx.x / 4, j = blockIdx.x * kDecJT + (threadIdx.x % 4) * 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ float red[kThreads / 32][kDecJT];
+
+  float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (m < M) {
+    const float rm = to_float(r[b * st.s[R_SB] + h * st.s[R_SH] + m]);
+    const float km = to_float(k[b * st.s[K_SB] + h * st.s[K_SH] + m]);
+    const float wm = expf(logw[b * st.s[W_SB] + h * st.s[W_SH] + m]);
+    const float um = u[h * M + m];
+    const float4 vv = load4(v + b * st.s[V_SB] + h * st.s[V_SH] + j, M - j);
+    const float4 S = s0 ? load4(s0 + b * st.s[S0_SB] + h * st.s[S0_SH] +
+                                m * M + j, M - j)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float ukm = um * km;
+    part = make_float4(rm * fmaf(ukm, vv.x, S.x), rm * fmaf(ukm, vv.y, S.y),
+                       rm * fmaf(ukm, vv.z, S.z), rm * fmaf(ukm, vv.w, S.w));
+    store4(s_out + b * st.s[S_SB] + h * st.s[S_SH] + m * M + j,
+           make_float4(fmaf(wm, S.x, km * vv.x), fmaf(wm, S.y, km * vv.y),
+                       fmaf(wm, S.z, km * vv.z), fmaf(wm, S.w, km * vv.w)),
+           M - j);
+  }
+  // sum over m: the warp's 8 rows by shuffle, then the 8 warps
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    part.x += __shfl_xor_sync(0xffffffffu, part.x, off);
+    part.y += __shfl_xor_sync(0xffffffffu, part.y, off);
+    part.z += __shfl_xor_sync(0xffffffffu, part.z, off);
+    part.w += __shfl_xor_sync(0xffffffffu, part.w, off);
+  }
+  if (lane < 4) {
+    red[warp][4 * lane] = part.x;
+    red[warp][4 * lane + 1] = part.y;
+    red[warp][4 * lane + 2] = part.z;
+    red[warp][4 * lane + 3] = part.w;
+  }
+  __syncthreads();
+  const int jj = blockIdx.x * kDecJT + threadIdx.x;
+  if (threadIdx.x < kDecJT && jj < M) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += red[w][threadIdx.x];
+    o[b * st.s[O_SB] + h * st.s[O_SH] + jj] = s;
+  }
+}
+
+template <typename T, int JT>
+int launch_prefill(const T* r, const T* k, const T* v, const float* logw,
+                   const float* u, const float* s0, float* o, float* s_out,
+                   float* buf, float* dec, int B, int H, int Tn, int M,
+                   const Strides& st, cudaStream_t stream) {
+  static unsigned done_state = 0, done_out = 0;
+  const size_t smem_state = sizeof(float) *
+      ((size_t)kC * kP + (size_t)kC * JT + (size_t)kSeg * kM);
+  const size_t smem_out = sizeof(float) *
+      (2 * (size_t)kC * kP + (size_t)kC * JT + (size_t)kM * JT + kM + kC +
+       (size_t)kSeg * kM);
+  cudaError_t err = smem_once((const void*)chunk_state<T, JT>, smem_state,
+                              &done_state);
+  if (err == cudaSuccess)
+    err = smem_once((const void*)chunk_out<T, JT>, smem_out, &done_out);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = (Tn + kC - 1) / kC;
+  const dim3 grid((M + JT - 1) / JT, nc, B * H);
+  chunk_state<T, JT><<<grid, kThreads, smem_state, stream>>>(
+      k, v, logw, buf, dec, H, Tn, M, st);
+  const long long threads = (long long)B * H * kState;
+  state_scan<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+               stream>>>(buf, dec, s0, s_out, B * H, H, nc, M, st);
+  chunk_out<T, JT><<<grid, kThreads, smem_out, stream>>>(
+      r, k, v, logw, u, buf, o, H, Tn, M, st);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const float* logw,
-           const float* u, const float* s0, float* o, float* s_out, int B,
-           int H, int Tn, int M, const Strides& st, cudaStream_t stream) {
-  const int MP = M + 1;
-  const size_t smem = sizeof(float) *
-      (5 * (size_t)kC * MP + (size_t)kC * (kC + 1) + (size_t)M * MP +
-       2 * (size_t)M + kC);
-  cudaError_t err = cudaFuncSetAttribute(
-      rwkv_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rwkv_scan_kernel<T><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), logw, u, s0, o, s_out, H, Tn, M, st);
-  return (int)cudaGetLastError();
+           const float* u, const float* s0, float* o, float* s_out,
+           float* buf, float* dec, int B, int H, int Tn, int M,
+           const Strides& st, cudaStream_t stream) {
+  const T* rr = static_cast<const T*>(r);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
+  if (Tn == 1) {
+    const dim3 grid((M + kDecJT - 1) / kDecJT, B * H);
+    rwkv_decode<T><<<grid, kThreads, 0, stream>>>(rr, kk, vv, logw, u, s0, o,
+                                                 s_out, H, M, st);
+    return (int)cudaGetLastError();
+  }
+  // value columns per block: the chunks alone should give two blocks an SM
+  const long long chunks = (long long)B * H * ((Tn + kC - 1) / kC);
+  if (chunks >= 264)
+    return launch_prefill<T, 64>(rr, kk, vv, logw, u, s0, o, s_out, buf, dec,
+                                 B, H, Tn, M, st, stream);
+  if (chunks >= 132)
+    return launch_prefill<T, 32>(rr, kk, vv, logw, u, s0, o, s_out, buf, dec,
+                                 B, H, Tn, M, st, stream);
+  return launch_prefill<T, 16>(rr, kk, vv, logw, u, s0, o, s_out, buf, dec, B,
+                               H, Tn, M, st, stream);
 }
 
 }  // namespace
 
 // dtype of r/k/v: 0 = float32, 1 = bfloat16; logw, u, S0, o and S are
-// float32.  s0 may be null (start from zeros).  strides (elements): r_sb,
-// r_sh, r_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, logw_sb, logw_sh,
-// logw_st, o_sb, o_sh, o_st, s0_sb, s0_sh, s_sb, s_sh; the last dim of
-// every tensor has unit stride, u is (H, M) contiguous and each (M, M)
-// state is contiguous.  Returns a cudaError_t (0 on success).
+// float32.  s0 may be null (start from zeros).  buf (B*H, chunks, 64, 64)
+// and dec (B*H, chunks, 64) are float32 scratch for T > 1 (null for
+// T == 1).  strides (elements): r_sb, r_sh, r_st, k_sb, k_sh, k_st, v_sb,
+// v_sh, v_st, logw_sb, logw_sh, logw_st, o_sb, o_sh, o_st, s0_sb, s0_sh,
+// s_sb, s_sh; the last dim of every tensor has unit stride, u is (H, M)
+// contiguous and each (M, M) state is contiguous.  Returns a cudaError_t
+// (0 on success).
 extern "C" int repro_rwkv_scan(int dtype, const void* r, const void* k,
                                const void* v, const void* logw,
                                const void* u, const void* s0, void* o,
-                               void* s_out, int B, int H, int Tn, int M,
+                               void* s_out, void* buf, void* dec, int B,
+                               int H, int Tn, int M,
                                const long long* strides, void* stream) {
-  if (M < 1 || M > kMaxM || Tn < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > kM || Tn < 1 || B * H < 1 || B * H > 65535 ||
+      (Tn > 1 && (!buf || !dec)))
+    return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < kNStrides; ++i) st.s[i] = strides[i];
   const float* lw = static_cast<const float*>(logw);
@@ -219,11 +635,14 @@ extern "C" int repro_rwkv_scan(int dtype, const void* r, const void* k,
   const float* s0f = static_cast<const float*>(s0);
   float* of = static_cast<float*>(o);
   float* sf = static_cast<float*>(s_out);
+  float* bf = static_cast<float*>(buf);
+  float* df = static_cast<float*>(dec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(r, k, v, lw, uu, s0f, of, sf, B, H, Tn, M, st, s);
+    return launch<float>(r, k, v, lw, uu, s0f, of, sf, bf, df, B, H, Tn, M,
+                         st, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(r, k, v, lw, uu, s0f, of, sf, B, H, Tn, M,
-                                 st, s);
+    return launch<__nv_bfloat16>(r, k, v, lw, uu, s0f, of, sf, bf, df, B, H,
+                                 Tn, M, st, s);
   return (int)cudaErrorInvalidValue;
 }

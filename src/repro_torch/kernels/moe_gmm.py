@@ -25,7 +25,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("moe_gmm").repro_moe_gmm
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -33,7 +33,7 @@ def _kernel():
     return _fn
 
 
-def check(x, w) -> None:
+def check(x, w, rows=None) -> None:
     """Raise ``ValueError`` unless the kernel takes these inputs."""
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
@@ -47,16 +47,24 @@ def check(x, w) -> None:
                          "both bfloat16")
     if x.stride(-1) != 1 or w.stride(-1) != 1:
         raise ValueError("x and w must have a unit stride on their last dim")
-    if not x.is_cuda or w.device != x.device:
+    if rows is not None and (rows.shape != (x.shape[0],)
+                             or rows.dtype != torch.int32
+                             or not rows.is_contiguous()):
+        raise ValueError(f"rows must be ({x.shape[0]},) int32 and "
+                         f"contiguous; got {tuple(rows.shape)} {rows.dtype}")
+    if not x.is_cuda or any(t.device != x.device for t in
+                            (w,) + (() if rows is None else (rows,))):
         raise ValueError("all inputs must be on one CUDA device")
 
 
-def moe_gmm(x, w):
+def moe_gmm(x, w, rows=None):
     """x: (E,C,D); w: (E,D,F), both read through their strides (a layer's
     view of a stacked leaf is fine) -> y (E,C,F) in x.dtype, each product
-    summed in float32 over all of D."""
+    summed in float32 over all of D.  ``rows`` (E,) int32 on the device, or
+    None for all C: rows c >= rows[e] of y are zeros, and no weight is read
+    for them."""
     global launches
-    check(x, w)
+    check(x, w, rows)
     E, C, D = x.shape
     F = w.shape[2]
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
@@ -66,7 +74,8 @@ def moe_gmm(x, w):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(ELEM_BYTES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                E, C, D, F, strides, stream)
+                None if rows is None else rows.data_ptr(), E, C, D, F,
+                strides, stream)
     if rc != 0:
         raise RuntimeError(f"moe_gmm kernel launch failed: cudaError_t {rc}")
     launches += 1

@@ -40,11 +40,12 @@ def decode_attention(q, k, v, lengths):
     return ref.decode_attention(q, k, v, lengths)
 
 
-def moe_gmm(x, w):
-    """x: (E,C,D); w: (E,D,F) -> (E,C,F) in x.dtype, summed in float32."""
+def moe_gmm(x, w, rows=None):
+    """x: (E,C,D); w: (E,D,F) -> (E,C,F) in x.dtype, summed in float32;
+    rows (E,) int32 or None: rows c >= rows[e] are zeros."""
     if _on(x) == "cuda":
-        return _gmm.moe_gmm(x, w)
-    return ref.moe_gmm(x, w)
+        return _gmm.moe_gmm(x, w, rows)
+    return ref.moe_gmm(x, w, rows)
 
 
 def rwkv_scan(r, k, v, logw, u, S0=None):

@@ -43,10 +43,14 @@ def decode_attention(q, k, v, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
-def moe_gmm(x, w):
+def moe_gmm(x, w, rows=None):
     """x: (E,C,D); w: (E,D,F) -> (E,C,F): the products in float32, cast
-    to x.dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    to x.dtype.  With ``rows`` (E,) int, rows c >= rows[e] are zeros."""
+    y = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    if rows is None:
+        return y
+    live = torch.arange(x.shape[1], device=x.device)[None, :] < rows[:, None]
+    return torch.where(live[..., None], y, 0)
 
 
 def rwkv_scan(r, k, v, logw, u, S0=None):

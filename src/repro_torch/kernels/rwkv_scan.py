@@ -2,8 +2,10 @@
 (replaces the Pallas TPU kernel ``src/repro/kernels/rwkv_scan.py``).
 
 The wrapper checks its inputs and raises on anything the kernel does not
-take, allocates the outputs, launches on the current stream and counts the
-launch.  It runs only on CUDA tensors: ``ops.rwkv_scan`` sends CPU tensors
+take, allocates the outputs (and, for T > 1, the float32 scratch of the
+chunk states), launches on the current stream and counts the call: one
+launch for T == 1, three for a prefill (chunk states, the scan over them,
+the chunk outputs), all from one C call.  It runs only on CUDA tensors: ``ops.rwkv_scan`` sends CPU tensors
 to ``ref.rwkv_scan`` instead.
 """
 
@@ -17,6 +19,7 @@ from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_SIZE = 64              # M: the kernel's shared-memory tiles
+CHUNK = 64                      # csrc/rwkv_scan.cu kC
 
 launches = 0                    # kernel launches since the last reset
 _fn = None
@@ -26,7 +29,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("rwkv_scan").repro_rwkv_scan
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -54,6 +57,8 @@ def check(r, k, v, logw, u, S0=None) -> None:
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit stride on M")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H}: want at most 65535")
     if S0 is not None:
         if S0.shape != (B, H, M, M) or S0.dtype != torch.float32:
             raise ValueError(f"S0 must be ({B},{H},{M},{M}) float32")
@@ -75,6 +80,13 @@ def rwkv_scan(r, k, v, logw, u, S0=None):
     o = torch.empty((B, T, H, M), dtype=torch.float32,
                     device=r.device).transpose(1, 2)
     S = torch.empty((B, H, M, M), dtype=torch.float32, device=r.device)
+    buf = dec = None
+    if T > 1:                   # per chunk: its state delta, then its start
+        nc = -(-T // CHUNK)
+        buf = torch.empty((B * H, nc, MAX_HEAD_SIZE, MAX_HEAD_SIZE),
+                          dtype=torch.float32, device=r.device)
+        dec = torch.empty((B * H, nc, MAX_HEAD_SIZE), dtype=torch.float32,
+                          device=r.device)
     s0 = (0, 0) if S0 is None else (S0.stride(0), S0.stride(1))
     strides = (ctypes.c_longlong * 19)(
         *(t.stride(i) for t in (r, k, v, logw, o) for i in range(3)),
@@ -85,7 +97,9 @@ def rwkv_scan(r, k, v, logw, u, S0=None):
         rc = fn(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
                 logw.data_ptr(), u.data_ptr(),
                 None if S0 is None else S0.data_ptr(), o.data_ptr(),
-                S.data_ptr(), B, H, T, M, strides, stream)
+                S.data_ptr(), None if buf is None else buf.data_ptr(),
+                None if dec is None else dec.data_ptr(), B, H, T, M, strides,
+                stream)
     if rc != 0:
         raise RuntimeError(f"rwkv_scan kernel launch failed: cudaError_t {rc}")
     launches += 1

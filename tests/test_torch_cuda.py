@@ -181,8 +181,15 @@ def test_cuda_model_kernel_path_matches_plain_path(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,T,M,with_s0", [
     (1, 40, 1024, 64, False), (1, 40, 1000, 64, False),   # ragged T
-    (4, 40, 1, 64, True), (2, 3, 130, 32, True)])         # decode; small M
+    (4, 40, 1, 64, True), (2, 3, 130, 32, True),          # decode; small M
+    # B * H from 1 to 160, one chunk and its edges, each column tile width
+    (1, 1, 1, 64, False), (1, 1, 63, 64, False), (1, 1, 64, 64, True),
+    (1, 1, 65, 64, True), (4, 40, 1024, 64, True), (1, 40, 260, 64, True),
+    (3, 2, 65, 16, False), (2, 5, 1000, 40, True)])
 def test_cuda_rwkv_scan_matches_plain(cuda, dtype, B, H, T, M, with_s0):
+    """K4 against ``ref.rwkv_scan``, o and S: the one-pass decode (T = 1)
+    and the three-launch chunk-parallel prefill at 64, 32 and 16 value
+    columns per block (by B * H * chunks), ragged T and heads under 64."""
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
 
@@ -255,11 +262,13 @@ def test_cuda_recurrent_model_kernel_path_matches_plain_path(
     (128, 80, 4096, 1536, False), (128, 4, 1536, 4096, False),  # the path
     (8, 80, 4100, 1540, False), (8, 4, 4100, 1540, True),       # ragged
     (3, 1, 64, 8, False), (5, 13, 300, 129, True), (4, 130, 520, 260, False),
-    (6, 37, 1000, 200, False)])
+    (6, 37, 1000, 200, False), (8, 16, 520, 260, False),
+    (8, 17, 4100, 129, True), (8, 33, 1540, 1540, True)])
 def test_cuda_moe_gmm_matches_plain(cuda, dtype, E, C, D, F, strided):
-    """K3 against ``ref.moe_gmm``: every tile regime of C, ragged C, D and
-    F, x read through a row stride and w as one layer's view of a stacked
-    leaf."""
+    """K3 against ``ref.moe_gmm``: every tile regime of C (bf16 on the
+    tensor cores, in 4-warp blocks for C <= 32 and 8-warp blocks above;
+    float32 on CUDA cores), ragged C, D and F, x read through a row stride
+    and w as one layer's view of a stacked leaf."""
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
     x = torch.randn((E, C, D + 8 if strided else D), generator=g,
@@ -270,6 +279,31 @@ def test_cuda_moe_gmm_matches_plain(cuda, dtype, E, C, D, F, strided):
     torch.cuda.synchronize()
     assert ops.launch_counts()["moe_gmm"] == 1
     torch.testing.assert_close(got.float(), ref.moe_gmm(x, w).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", ["zero", "partial", "full"])
+@pytest.mark.parametrize("E,C,D,F", [(8, 4, 4100, 1540), (8, 80, 4100, 1540),
+                                     (6, 130, 520, 260), (8, 17, 300, 129)])
+def test_cuda_moe_gmm_rows(cuda, dtype, rows, E, C, D, F):
+    """K3 with ``rows``: rows c >= rows[e] are exact zeros and the rest the
+    plain version's, with no row live, some rows (0, 1, C - 1, C, ... per
+    expert) and all."""
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn((E, C, D), generator=g, device=cuda).to(dt)
+    w = torch.randn((E, D, F), generator=g, device=cuda).to(dt)
+    n = {"zero": [0] * E, "full": [C] * E,
+         "partial": [(0, 1, C - 1, C, C // 2, 3, C // 3, 2)[e % 8]
+                     for e in range(E)]}[rows]
+    r = torch.tensor(n, dtype=torch.int32, device=cuda)
+    got = ops.moe_gmm(x, w, r)
+    torch.cuda.synchronize()
+    live = (torch.arange(C, device=cuda)[None, :] < r[:, None])[..., None]
+    assert not got.masked_select(~live).any()
+    torch.testing.assert_close(got.float(), ref.moe_gmm(x, w, r).float(),
                                rtol=TOLS[dtype], atol=TOLS[dtype])
 
 

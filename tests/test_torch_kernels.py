@@ -278,6 +278,93 @@ def test_rwkv_scan_continues_from_a_state(T):
                                atol=1e-4)
 
 
+def _chunk_parallel(r, k, v, logw, u, S0=None, jt=16, chunk=64, seg=4):
+    """A float32 model of K4's algebra.  T == 1: the one-pass decode.
+    T > 1, the chunk-parallel prefill: (1) per chunk and tile of ``jt``
+    value columns, in any order, the cumsum of logw in ``seg`` segments per
+    column, the chunk's state delta k_tail^T v and decay exp(cs_last); (2)
+    the scan over the chunk states from S0, keeping each chunk's start;
+    (3) per chunk and column tile, the chunk-local output
+    tril(q_in k_in^T, -1) v + (r . u . k) v plus the cross term q_in S_c.
+    Rows past a ragged T are zeros (logw 0)."""
+    r, k, v, logw = (torch.as_tensor(a, dtype=torch.float32)
+                     for a in (r, k, v, logw))
+    u = torch.as_tensor(u, dtype=torch.float32)
+    B, H, T, M = r.shape
+    S = (torch.zeros((B, H, M, M)) if S0 is None
+         else torch.as_tensor(S0, dtype=torch.float32).clone())
+    uk = u[None, :, :, None]
+    if T == 1:
+        kv = k[:, :, 0, :, None] * v[:, :, 0, None, :]
+        o = torch.einsum("bhm,bhmj->bhj", r[:, :, 0], S + uk * kv)
+        return o[:, :, None], torch.exp(logw[:, :, 0])[..., None] * S + kv
+    nc = -(-T // chunk)
+    pad = (0, 0, 0, nc * chunk - T)
+    r, k, v, logw = (torch.nn.functional.pad(a, pad).reshape(
+        B, H, nc, chunk, M) for a in (r, k, v, logw))
+    # the cumsum: each column in seg segments, totals passed on
+    parts = logw.reshape(B, H, nc, seg, chunk // seg, M)
+    before = torch.cumsum(parts.sum(4), dim=3) - parts.sum(4)
+    cs = (before[:, :, :, :, None] + torch.cumsum(parts, dim=4)).reshape(
+        B, H, nc, chunk, M)
+    last = cs[:, :, :, -1]                                  # (B,H,nc,M)
+    tiles = [slice(j0, min(j0 + jt, M)) for j0 in range(0, M, jt)]
+    delta = torch.zeros((B, H, nc, M, M))
+    for c in reversed(range(nc)):                           # (1) any order
+        k_tail = k[:, :, c] * torch.exp(last[:, :, c, None] - cs[:, :, c])
+        for j in tiles:
+            delta[:, :, c, :, j] = torch.einsum(
+                "bhtm,bhtj->bhmj", k_tail, v[:, :, c, :, j])
+    starts = []
+    for c in range(nc):                                     # (2) in order
+        starts.append(S)
+        S = torch.exp(last[:, :, c])[..., None] * S + delta[:, :, c]
+    o = torch.zeros((B, H, nc, chunk, M))
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril(-1)
+    for c in reversed(range(nc)):                           # (3) any order
+        q_in = r[:, :, c] * torch.exp(cs[:, :, c] - logw[:, :, c])
+        k_in = k[:, :, c] * torch.exp(-cs[:, :, c])
+        sc = torch.einsum("bhtm,bhsm->bhts", q_in, k_in).masked_fill(~mask, 0)
+        diag = torch.einsum("bhtm,hm,bhtm->bht", r[:, :, c], u, k[:, :, c])
+        for j in tiles:
+            vj = v[:, :, c, :, j]
+            o[:, :, c, :, j] = (sc @ vj + diag[..., None] * vj
+                                + q_in @ starts[c][..., j])
+    return o.reshape(B, H, nc * chunk, M)[:, :, :T], S
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 1000, 1024])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv_chunk_parallel_algebra(T, with_s0):
+    """K4's three phases (and its T == 1 pass), in float32, against the
+    reference oracle at 1e-5 of the output's scale and, where T is a whole number of its chunks
+    and there is no S0, the Pallas kernel (interpret mode) at 2e-3.  S0 is
+    the oracle's state after a 16-step prefix, and the oracle runs prefix
+    and sequence in one scan."""
+    rng = np.random.default_rng(11)
+    B, H, M, P = 1, 2, 32, 16 if with_s0 else 0
+    ins = _rwkv_inputs(rng, B, H, P + T, M)
+    o_all, S_want = jref.rwkv_scan(*(jnp.asarray(a) for a in ins))
+    S0 = None
+    if with_s0:
+        S0 = np.array(jref.rwkv_scan(*(jnp.asarray(a[:, :, :P])
+                                         for a in ins[:4]),
+                                       jnp.asarray(ins[4]))[1])
+    cur = [a[:, :, P:] for a in ins[:4]] + [ins[4]]
+    o, S = _chunk_parallel(*cur, S0=S0)
+    for got, want in ((o, np.asarray(o_all)[:, :, P:]),
+                      (S, np.asarray(S_want))):
+        # 1e-5 of the output's scale: at T = 1024 |o| reaches ~100 and the
+        # JAX oracle and the port's step-by-step one (both float32) already
+        # differ by 2.3e-5 there
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(want).max()))
+    if not with_s0 and T % 64 == 0:
+        oe, Se = jops.rwkv_scan(*(jnp.asarray(a) for a in cur), chunk=64)
+        close(o, oe, "float32")
+        close(S, Se, "float32")
+
+
 @pytest.mark.parametrize("B,T,D,chunk,bd", [
     (1, 64, 64, 32, 64),
     (2, 128, 128, 32, 64),
@@ -356,6 +443,9 @@ def test_recurrence_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         k4.check(x, x, x, x, u,
                  torch.zeros((1, 2, 16, 16)).transpose(2, 3))
+    with pytest.raises(ValueError, match="65535"):
+        y = torch.zeros((1, 2, 8, 16)).expand(70000, 2, 8, 16)
+        k4.check(y, y, y, y, u)
     a = torch.zeros((2, 8, 16))
     with pytest.raises(ValueError, match="CUDA"):
         k5.check(a, a)
@@ -363,3 +453,25 @@ def test_recurrence_wrappers_validate_inputs():
         k5.check(a.bfloat16(), a.bfloat16())
     with pytest.raises(ValueError, match="unit stride"):
         k5.check(a.transpose(1, 2), a.transpose(1, 2))
+
+
+def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/`` header changes the library name of every source
+    that includes it, so those are rebuilt, and of no other."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    before = {n: _build._target(n) for n in names}
+    assert before == {n: _build._target(n) for n in names}   # stable
+    header = csrc / "mma_sync.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    users = {n for n in names
+             if '#include "mma_sync.cuh"' in (csrc / f"{n}.cu").read_text()}
+    assert users == {"decode_attention", "flash_attention", "moe_gmm",
+                     "rwkv_scan"}
+    for n in names:
+        assert (_build._target(n) != before[n]) == (n in users), n

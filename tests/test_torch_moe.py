@@ -8,8 +8,11 @@ the Pallas grid floor-divides away, against the oracle alone.
 ``moe_block`` and an arctic layer with its dense residual are held in
 float32 at 1e-4 (the same math summed in another order), with converted
 parameters, including batches where the capacity drops tokens and experts
-that get fewer tokens than their capacity.  ``tests/test_torch_cuda.py``
-holds K3 itself against its plain version on the card."""
+that get fewer tokens than their capacity.  ``moe_gmm``'s ``rows`` (the
+live rows of each expert) is held against the Pallas kernel and the oracle
+with the rows past it zeroed, and ``moe_block``'s use of it against the
+routing's ``keep`` mask.  ``tests/test_torch_cuda.py`` holds K3 itself
+against its plain version on the card."""
 
 import dataclasses
 
@@ -79,6 +82,32 @@ def test_moe_gmm_ragged_matches_reference_oracle(e, c, d, f):
                                rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("e,c,d,f,rows", [
+    (4, 64, 128, 64, [0, 17, 64, 40]), (2, 128, 128, 128, [128, 1]),
+    (3, 64, 128, 64, [0, 0, 0]), (2, 64, 128, 64, [64, 64])])
+def test_moe_gmm_rows_matches_pallas(e, c, d, f, rows):
+    """``rows``: each expert's first rows[e] rows are the Pallas kernel's
+    and the oracle's, the rest are zeros; rows 0, partial and C, float32 at
+    1e-5 (D = 128: a float32 sum of 128 unit products, reordered, stays
+    well inside it; at D = 256 one element in 32,768 moves by 1.2e-5)."""
+    rng = np.random.default_rng(2)
+    x, w = arr(rng, e, c, d), arr(rng, e, d, f)
+    r = torch.tensor(rows, dtype=torch.int32)
+    got = ops.moe_gmm(torch.from_numpy(x), torch.from_numpy(w), r).numpy()
+    live = np.arange(c)[None, :, None] < np.asarray(rows)[:, None, None]
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    for want in (jops.moe_gmm(jx, jw, block_c=64, block_f=64, block_d=64),
+                 jref.moe_gmm(jx, jw)):
+        np.testing.assert_allclose(got, np.where(live, np.asarray(want), 0),
+                                   rtol=1e-5, atol=1e-5)
+    assert not got[~np.broadcast_to(live, got.shape)].any()
+    torch.testing.assert_close(                 # rows = C is rows = None
+        ops.moe_gmm(torch.from_numpy(x), torch.from_numpy(w),
+                    torch.full((e,), c, dtype=torch.int32)),
+        ops.moe_gmm(torch.from_numpy(x), torch.from_numpy(w)), rtol=0,
+        atol=0)
+
+
 def test_moe_gmm_wrapper_validates_inputs():
     from repro_torch.kernels import moe_gmm as k3
     x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 16))
@@ -94,6 +123,10 @@ def test_moe_gmm_wrapper_validates_inputs():
         k3.check(x, w.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="nonempty"):
         k3.check(torch.zeros((2, 0, 8)), w)
+    with pytest.raises(ValueError, match="rows"):
+        k3.check(x, w, torch.zeros((2,), dtype=torch.int64))
+    with pytest.raises(ValueError, match="rows"):
+        k3.check(x, w, torch.zeros((3,), dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel"):
         ops.moe_gmm(x.to("meta"), w.to("meta"))
     assert "moe_gmm" in ops.launch_counts()
@@ -182,20 +215,61 @@ def test_moe_block_runs_three_grouped_matmuls(monkeypatch):
     jcfg, cfg, jl, pl = layer0("qwen3_moe_235b")
     calls = []
 
-    def counting(x, w):
-        calls.append((tuple(x.shape), tuple(w.shape)))
-        return ref.moe_gmm(x, w)
+    def counting(x, w, rows):
+        calls.append((tuple(x.shape), tuple(w.shape), rows))
+        return ref.moe_gmm(x, w, rows)
     monkeypatch.setattr(ops, "moe_gmm", counting)
     monkeypatch.setattr(layers, "use_kernels",
                         lambda c, x: c.attn_impl != "plain")
     x = torch.from_numpy(arr(np.random.default_rng(5), 2, 16, cfg.d_model))
     y, _ = moe.moe_block(cfg, pl["moe"], x)
     E, C, D, F = cfg.n_experts, moe._capacity(cfg, 32), cfg.d_model, cfg.e_ff
-    assert calls == [((E, C, D), (E, D, F))] * 2 + [((E, C, F), (E, F, D))]
+    assert [c[:2] for c in calls] == [((E, C, D), (E, D, F))] * 2 + [
+        ((E, C, F), (E, F, D))]
+    keep = moe._route(cfg, pl["moe"], x.reshape(32, D))[3]
+    for c in calls:             # each expert's kept count, as int32
+        assert c[2].dtype == torch.int32
+        assert torch.equal(c[2], keep.sum(1, dtype=torch.int32))
     plain, _ = moe.moe_block(dataclasses.replace(cfg, attn_impl="plain"),
                              pl["moe"], x)
     assert len(calls) == 3
     torch.testing.assert_close(y, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("B,T,cf", [(1, 4, 1.25), (4, 100, 1.25),
+                                    (4, 100, 0.5)])
+def test_moe_route_keeps_a_prefix(arch, B, T, cf):
+    """What K3's ``rows`` relies on: each expert's kept slots are a prefix
+    of its capacity buffer, keep[e, :rows[e]] all true and the rest false,
+    with and without capacity drops."""
+    jcfg, cfg, jl, pl = layer0(arch)
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    x = arr(np.random.default_rng(B * T + 1), B * T, cfg.d_model)
+    keep = moe._route(cfg, pl["moe"], torch.from_numpy(x))[3]
+    rows = keep.sum(1)
+    prefix = torch.arange(keep.shape[1])[None, :] < rows[:, None]
+    assert torch.equal(keep, prefix)
+    assert int(rows.min()) < keep.shape[1] or cf < 1   # some partial rows
+    if cf < 1:
+        assert int(rows.max()) == keep.shape[1]          # and full ones
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("B,T,cf", [(2, 16, 1.25), (4, 100, 0.5)])
+def test_moe_block_rows_changes_nothing(arch, B, T, cf, monkeypatch):
+    """``moe_block`` gives the same output, bit for bit, when its matmuls
+    ignore ``rows`` and compute every slot."""
+    jcfg, cfg, jl, pl = layer0(arch)
+    cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    x = torch.from_numpy(arr(np.random.default_rng(B * T + 2), B, T,
+                             cfg.d_model))
+    got, aux = moe.moe_block(cfg, pl["moe"], x)
+    plain_gmm = ref.moe_gmm
+    monkeypatch.setattr(ref, "moe_gmm", lambda x, w, rows: plain_gmm(x, w))
+    want, want_aux = moe.moe_block(cfg, pl["moe"], x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(aux, want_aux, rtol=0, atol=0)
 
 
 def test_moe_block_bf16_sums_in_float32():
