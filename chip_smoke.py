@@ -19,20 +19,31 @@ Phases, each printed as one JSON object on its own line:
               (the "serve, routed" rows, whose bound is the live experts'
               bytes); the all-rows rows stay as they were.  K4 is also
               checked at one chunk and its edges (T = 63, 64, 65) with
-              B * H = 1.  One line gives, for K3 and K4 at their path
-              shapes, the device time of each CUDA kernel that one wrapper
-              call launches (``torch.profiler``, 10 calls; K4's prefill is
-              three launches).  K1 is also checked at the boundaries of its
+              B * H = 1.  K2 is also checked at pixtral-12b's head dim of
+              160 (causal, ragged, T < S, full, an unaligned q) and K5 at
+              T = 1, a window of 256 steps -/+ 1 and 4095, a ragged D,
+              B = 3, B/T strides, a = 0.999 and a = 1e-4.  One line gives,
+              for K3, K4 and K5 at their path shapes, the device time of
+              each CUDA kernel that one wrapper call launches
+              (``torch.profiler``, 10 calls; K4's prefill is three
+              launches), and one the time of ``torch.add`` over K5's
+              prefill bytes.  K1 is also checked at the boundaries of its
               split over the cache and timed at the length the serve path
               reaches (33), and one line gives the host time of one K1
               wrapper call (1,000 calls, no synchronise).
-  4. four models at their published widths, in bf16, random weights from
+  4. five models at their published widths, in bf16, random weights from
      a seeded ``torch.Generator``, one after the other (each freed before
      the next):
        qwen3-0.6b         prefill B=1, T=1024 (K2)
        rwkv6-3b           prefill B=1, T=1024 (K4)
        recurrentgemma-9b  prefill B=1, T=4096 > its window of 2048 (K2
                           with the window, K5)
+       pixtral-12b        prefill B=1, T=1024 (K2 at hd 160; K1 at hd 160
+                          in its serve), cut to 28 of its 40 layers, the
+                          cut printed in its prefill line: at 40 layers the
+                          int8 weight refresh would need about 81 GB (5
+                          bytes per parameter, and 6 per element of the
+                          largest leaf, as the MoE's measured peak reads)
        qwen3-moe-235b-a22b  prefill B=1, T=1024 (K2; K3 three times per
                           layer: the experts' gate, up and down matmuls),
                           cut to 3 of its 94 layers, the cut printed in its
@@ -47,14 +58,15 @@ Phases, each printed as one JSON object on its own line:
      then a ``ServeEngine`` on ``Cluster(4, "drust")`` with the int8 weight
      wire serves 8 requests (half share a prefix page), every tick must
      launch each kernel of its decode path once per layer that runs it
-     (K1; K4; K1 and K5; K1 and three K3), and three decode steps from the
-     served cache are held against the plain path.  qwen3-0.6b is held in
-     bf16 (relative L2 5e-2).  The recurrent models are held in float32,
-     with the same weights upcast (relative L2 2e-3): in bf16 their logits
-     move by several percent for any change of summation order in one
-     layer (a 1e-6 relative change of the recurrence's output, in float32,
-     flips bf16 roundings that compound over 32 layers), so a bf16
-     comparison cannot tell a right kernel from a wrong one; the bf16
+     (K1; K4; K1 and K5; K1; K1 and three K3), and three decode steps from
+     the served cache are held against the plain path.  qwen3-0.6b and
+     pixtral-12b are held in bf16 (relative L2 5e-2).  The recurrent
+     models are held in float32, with the same weights upcast (relative
+     L2 2e-3): in bf16 their logits move by several percent for any
+     change of summation order in one layer (a 1e-6 relative change of
+     the recurrence's output, in float32, flips bf16 roundings that
+     compound over 32 layers), so a bf16 comparison cannot tell a right
+     kernel from a wrong one; the bf16
      numbers are printed beside it.  The MoE model is held in float32 too,
      for its routing: top-8 of 128 experts is discontinuous, and the two
      paths hand the router hidden states that differ by float32 summation
@@ -122,6 +134,7 @@ K3_CASES = [(E, C, D, F_, False, None) for _, E, C, D, F_ in K3_PATHS] + [
 # None; see the module docstring).  The MoE model runs last, after the
 # others are freed: its serve phase needs the most memory.
 MOE_LAYERS = 3
+PIXTRAL_LAYERS = 28
 MODELS = [
     ("qwen3_0_6b", 1024, {"flash_attention": 28}, {"decode_attention": 28},
      "bfloat16", None),
@@ -129,6 +142,11 @@ MODELS = [
      None),
     ("recurrentgemma_9b", 4096, {"flash_attention": 12, "rglru_scan": 26},
      {"decode_attention": 12, "rglru_scan": 26}, "float32", None),
+    ("pixtral_12b", 1024, {"flash_attention": PIXTRAL_LAYERS},
+     {"decode_attention": PIXTRAL_LAYERS}, "bfloat16",
+     {"n_layers": PIXTRAL_LAYERS,
+      "why": "int8 refresh peak on one 80 GB card: about 81 GB at 40 "
+             "layers, 59 GB at 28"}),
     ("qwen3_moe_235b", 1024,
      {"flash_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS},
      {"decode_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS}, "float32",
@@ -303,11 +321,17 @@ def kernel_phase(torch, dev) -> list[dict]:
             w[1, e] = rand(D, F_, dtype=dtype)
         return x, w[1]
 
-    def k5_inputs(B, T, D, a_val=None):
-        a = torch.sigmoid(rand(B, T, D))
+    def k5_inputs(B, T, D, a_val=None, strided=False):
+        """a, b (B,T,D) float32; ``strided``: a is a window of a wider
+        buffer and b a (T,B,D) buffer seen as (B,T,D)."""
+        if strided:
+            a = torch.sigmoid(rand(B, T + 3, D + 5))[:, 1:T + 1, 2:D + 2]
+            b = rand(T + 2, B, D + 7).transpose(0, 1)[:, :T, 3:D + 3]
+        else:
+            a, b = torch.sigmoid(rand(B, T, D)), rand(B, T, D)
         if a_val is not None:
             a = torch.full_like(a, a_val)
-        return a, rand(B, T, D)
+        return a, b
 
     # -- correctness: every case, float32 and bf16 --------------------------
     checks = []
@@ -328,6 +352,8 @@ def kernel_phase(torch, dev) -> list[dict]:
                                        (4, 16, 1, 2048, 256,
                                         [1, 2048, 64, 1999]),
                                        (4, 64, 4, 2048, 128,    # G = 16
+                                        [1, 2048, 33, 1000]),
+                                       (4, 32, 8, 2048, 160,    # pixtral
                                         [1, 2048, 33, 1000])):
             ins = k1_inputs(B, H, Hkv, S, hd, dtype, lens)
             check("decode_attention", {"dtype": dt, "H": H, "Hkv": Hkv,
@@ -353,7 +379,14 @@ def kernel_phase(torch, dev) -> list[dict]:
                 (64, 4, 1024, 1024, 128, True, 0),
                 (16, 8, 1024, 1024, 64, True, 0),
                 (16, 8, 1000, 1000, 128, True, -1),    # q not 16-byte aligned
-                (16, 1, 4096, 4096, 256, True, 2048)):
+                (16, 1, 4096, 4096, 256, True, 2048),
+                # pixtral-12b's head dim: causal, full, ragged, T < S and
+                # an unaligned q
+                (32, 8, 1024, 1024, 160, True, 0),
+                (32, 8, 1024, 1024, 160, False, 0),
+                (32, 8, 1000, 1000, 160, True, 0),
+                (32, 8, 512, 1024, 160, True, 0),
+                (32, 8, 1000, 1000, 160, True, -1)):
             unaligned = window < 0
             window = max(window, 0)
             ins = k2_inputs(H, Hkv, T, S, hd, dtype)
@@ -392,11 +425,19 @@ def kernel_phase(torch, dev) -> list[dict]:
                               "strided_x": strided, "rows": kind},
                   got, ref.moe_gmm(x, w, r), tol)
             del x, w, got
-    for B, T, D, a_val in ((1, 4096, 4096, None), (2, 1000, 4100, None),
-                           (4, 1, 4096, None), (1, 4096, 4096, 1e-4)):
-        ins = k5_inputs(B, T, D, a_val)
+    # K5: the path shapes and strong decay, then T = 1, a window of 256
+    # steps -/+ 1 and 4095, a ragged D with B = 3 and B/T strides, and long
+    # memory
+    for B, T, D, a_val, strided in (
+            (1, 4096, 4096, None, False), (2, 1000, 4100, None, False),
+            (4, 1, 4096, None, False), (1, 4096, 4096, 1e-4, False),
+            (1, 1, 4096, None, False), (1, 255, 4096, None, False),
+            (1, 257, 4096, None, False), (1, 4095, 4096, None, False),
+            (3, 1000, 4099, None, False), (3, 600, 4099, None, True),
+            (1, 4096, 4096, 0.999, False)):
+        ins = k5_inputs(B, T, D, a_val, strided)
         check("rglru_scan", {"dtype": "float32", "B": B, "T": T, "D": D,
-                             "a": a_val},
+                             "a": a_val, "strided": strided},
               ops.rglru_scan(*ins), ref.rglru_scan(*ins), TOLS["float32"])
     torch.cuda.synchronize()
 
@@ -407,18 +448,26 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     def trace(name, path, fn, calls: int = 10):
         """Device time and count, per wrapper call, of each CUDA kernel that
-        ``fn`` launches, from torch.profiler over ``calls`` calls."""
+        ``fn`` launches, from torch.profiler over ``calls`` calls.  The
+        profiler now and then reports no kernel at all for a window (seen
+        on the H100): such a window is taken again, at most three in all."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        traces.append({"name": name, "path": path, "kernels": [
-            {"kernel": e.key[:90], "us_per_call": e.device_time_total / calls,
-             "launches_per_call": e.count / calls}
-            for e in prof.key_averages() if e.device_time_total > 0]})
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [{"kernel": e.key[:90],
+                        "us_per_call": e.device_time_total / calls,
+                        "launches_per_call": e.count / calls}
+                       for e in prof.key_averages()
+                       if e.device_time_total > 0]
+            if kernels:
+                break
+        traces.append({"name": name, "path": path, "windows": attempt,
+                       "kernels": kernels})
 
     def row(name, path, shape, ins, kernel, plain, library, nbytes, flops,
             dtype, replaces):
@@ -451,7 +500,8 @@ def kernel_phase(torch, dev) -> list[dict]:
             ("recurrentgemma-9b serve", (4, 16, 1, 2048, 256), 2048),
             ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 2048),
             ("qwen3-0.6b serve", (4, 16, 8, 2048, 128), 33),
-            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 33)):
+            ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 33),
+            ("pixtral-12b serve", (4, 32, 8, 2048, 160), 2048)):
         ins = k1_inputs(B, H, Hkv, S, hd, bf, [length] * B)
         n_keys = B * length
         pl = k1_plan(B, H, Hkv, S, hd)
@@ -508,7 +558,8 @@ def kernel_phase(torch, dev) -> list[dict]:
     for path, (H, Hkv, T, hd, window) in (
             ("qwen3-0.6b prefill", (16, 8, 1024, 128, 0)),
             ("recurrentgemma-9b prefill", (16, 1, 4096, 256, 2048)),
-            ("qwen3-moe-235b-a22b prefill", (64, 4, 1024, 128, 0))):
+            ("qwen3-moe-235b-a22b prefill", (64, 4, 1024, 128, 0)),
+            ("pixtral-12b prefill", (32, 8, 1024, 160, 0))):
         ins = k2_inputs(H, Hkv, T, T, hd, bf)
         # (query, key) pairs under the causal mask and the window
         pairs = sum(min(i + 1, window or T) for i in range(T))
@@ -572,11 +623,22 @@ def kernel_phase(torch, dev) -> list[dict]:
     for path, (B, T) in (("recurrentgemma-9b prefill", (1, 4096)),
                          ("recurrentgemma-9b serve", (4, 1))):
         D = 4096
+        ins = k5_inputs(B, T, D)
         row("rglru_scan", path, {"B": B, "T": T, "D": D,
                                  "dtype": "float32"},
-            k5_inputs(B, T, D), ops.rglru_scan, ref.rglru_scan, None,
+            ins, ops.rglru_scan, ref.rglru_scan, None,
             3 * B * T * D * 4, 2 * B * T * D, "float32",
             "src/repro/kernels/rglru_scan.py:42")
+        trace("rglru_scan", path, lambda: ops.rglru_scan(*ins))
+    # K5's prefill bytes (read a and b, write h) in one elementwise pass:
+    # what the card's memory gives a plain streaming kernel, beside the
+    # bound's 3.35 TB/s
+    a, b = k5_inputs(1, 4096, 4096)
+    h = torch.empty_like(a)
+    emit({"phase": "k5_same_bytes", "shape": [1, 4096, 4096],
+          "bytes": 3 * a.numel() * 4,
+          "torch_add_ms": timed(lambda: torch.add(a, b, out=h))})
+    del a, b, h
 
     emit({"phase": "kernel_traces", "traces": traces})
     emit({"phase": "kernels", "checks": checks,

@@ -24,15 +24,17 @@
 // One block of 4 warps per (b * H + h, tile of 64 queries), the tiles with
 // the most keys launched first; each warp owns 16 query rows.  The query
 // tile is copied once into shared memory and, for hd <= 128, loaded into
-// registers as A fragments (hd = 256 reads them from shared memory per key
-// tile, to leave registers for its 128 accumulators).  Keys and values
-// walk a two-stage ring of BK-key tiles (64 keys for hd <= 128, 32 for
-// hd = 256), filled by cp.async 16-byte copies with the next tile in
-// flight while the current one is multiplied; rows whose address is not
-// 16-byte aligned are copied element by element instead, and rows past S
-// are zero-filled.  Tiles are XOR-swizzled by 16-byte chunk (chunk c of
-// row r sits at c ^ (r mod 8), or c ^ ((r / 2) mod 4) for 64-byte rows),
-// so ldmatrix reads them without bank conflicts: plain ldmatrix gives the
+// registers as A fragments (hd 160 and 256 read them from shared memory
+// per key tile, to leave registers for their 80 and 128 accumulators).
+// Keys and values walk a two-stage ring of BK-key tiles (64 keys for
+// hd <= 128, 32 above), filled by cp.async 16-byte copies with the next
+// tile in flight while the current one is multiplied; rows whose address
+// is not 16-byte aligned are copied element by element instead, and rows
+// past S are zero-filled.  Tiles are XOR-swizzled by 16-byte chunk (swz in
+// mma_sync.cuh: chunk c of row r sits at c ^ (r mod 8) within its group of
+// 8; a trailing group of 4, as in 64-byte rows or the 20 chunks of hd 160,
+// at c ^ ((r / 2) mod 4) within itself), so ldmatrix reads them without
+// bank conflicts and every chunk stays in its row: plain ldmatrix gives the
 // B fragments of k for S = Q K^T, ldmatrix.trans those of v for O += P V.
 // The scores stay in registers; the online softmax takes row maxima and
 // sums across the four lanes that share a row, and P is packed from the S
@@ -521,7 +523,7 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 256}; window 0
+// dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 160, 256}; window 0
 // means none, else it needs causal.  strides
 // (elements): q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, out_sb,
 // out_sh, out_st; the head-dim stride of every tensor is 1.  Returns a
@@ -544,6 +546,9 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                               window, strides, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
+                               window, strides, s);
+    case 160:
+      return launch_dtype<160>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
                                window, strides, s);
     case 256:
       return launch_dtype<256>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,

@@ -58,14 +58,24 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // Element offset of chunk c (8 bf16) of row r in a tile with CPR 16-byte
-// chunks per row, XOR-swizzled so that ldmatrix's 8 rows hit 8 banks.
+// chunks per row, XOR-swizzled so that ldmatrix's 8 rows (r0 .. r0 + 7,
+// r0 a multiple of 8) hit 8 different groups of 4 banks, and no chunk
+// leaves its row.  Each whole group of 8 chunks is XORed with r mod 8.  A
+// trailing group of 4 (64-byte rows; hd 160's 20 chunks) is XORed within
+// itself with (r / 2) mod 4.  When CPR is 4 mod 8, rows r and r + 1 start
+// in opposite halves of the 8 bank groups, so both kinds of group stay
+// conflict-free; CPR 4, 8, 16 and 32 keep the layouts they always had.
 template <int CPR>
 __device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (CPR >= 8) {
+  static_assert(CPR > 0 && CPR % 4 == 0,
+                "rows of whole 64-byte groups: CPR a multiple of 4");
+  constexpr int kMain = CPR & ~7;           // chunks in whole groups of 8
+  if constexpr (kMain == CPR) {
     return (r * CPR + (c ^ (r & 7))) * 8;
   } else {
-    static_assert(CPR == 4, "64-byte rows: 4 chunks per row");
-    return (r * CPR + (c ^ ((r >> 1) & 3))) * 8;
+    const int cs = c < kMain ? c ^ (r & 7)
+                             : kMain + ((c - kMain) ^ ((r >> 1) & 3));
+    return (r * CPR + cs) * 8;
   }
 }
 

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 2048             # 8 chunks of 8 dims on each of 32 lanes
@@ -76,7 +77,9 @@ def _kernel():
 
 
 def check(q, k, v, lengths) -> None:
-    """Raise ``ValueError`` unless the kernel takes these inputs."""
+    """Raise ``RuntimeError`` for an input that would need a gradient
+    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
+    refuse_grad("decode_attention", q, k, v)
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,hd), k/v (B,Hkv,S,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

@@ -15,9 +15,10 @@ import ctypes
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)  # instantiated in the CUDA source
+HEAD_DIMS = (32, 64, 128, 160, 256)  # instantiated in the CUDA source
 
 launches = 0                    # kernel launches since the last reset
 _fn = None
@@ -36,7 +37,9 @@ def _kernel():
 
 
 def check(q, k, v, causal: bool, window: int = 0) -> None:
-    """Raise ``ValueError`` unless the kernel takes these inputs."""
+    """Raise ``RuntimeError`` for an input that would need a gradient
+    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
+    refuse_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,T,hd), k/v (B,Hkv,S,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -34,7 +35,9 @@ def _kernel():
 
 
 def check(x, w, rows=None) -> None:
-    """Raise ``ValueError`` unless the kernel takes these inputs."""
+    """Raise ``RuntimeError`` for an input that would need a gradient
+    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
+    refuse_grad("moe_gmm", x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0] \
             or w.shape[1] != x.shape[2]:
         raise ValueError(f"want x (E,C,D), w (E,D,F); got {tuple(x.shape)}, "

@@ -14,6 +14,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 launches = 0                    # kernel launches since the last reset
 _fn = None
@@ -31,10 +32,14 @@ def _kernel():
 
 
 def check(a, b) -> None:
-    """Raise ``ValueError`` unless the kernel takes these inputs."""
+    """Raise ``RuntimeError`` for an input that would need a gradient
+    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
+    refuse_grad("rglru_scan", a, b)
     if a.dim() != 3 or b.shape != a.shape or min(a.shape) < 1:
         raise ValueError(f"want a, b (B,T,D) of one nonempty shape; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if a.shape[0] > 65535:
+        raise ValueError(f"B = {a.shape[0]}: want at most 65535")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"dtypes {a.dtype}/{b.dtype}: want float32")
     if a.stride(-1) != 1 or b.stride(-1) != 1:

@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_SIZE = 64              # M: the kernel's shared-memory tiles
@@ -38,7 +39,9 @@ def _kernel():
 
 
 def check(r, k, v, logw, u, S0=None) -> None:
-    """Raise ``ValueError`` unless the kernel takes these inputs."""
+    """Raise ``RuntimeError`` for an input that would need a gradient
+    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
+    refuse_grad("rwkv_scan", r, k, v, logw, u, S0)
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"want r/k/v/logw (B,H,T,M) of one shape; got "
                          f"{[tuple(t.shape) for t in (r, k, v, logw)]}")

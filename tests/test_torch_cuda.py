@@ -36,7 +36,8 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,S,causal,hd", [
     (128, 128, True, 64), (1024, 1024, True, 128), (50, 50, True, 32),
-    (64, 192, True, 128), (40, 96, False, 256)])
+    (64, 192, True, 128), (40, 96, False, 256), (1024, 1024, True, 160),
+    (77, 300, True, 160), (40, 96, False, 160)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, T, S, causal, hd):
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
@@ -123,7 +124,7 @@ def test_cuda_decode_attention_split_boundaries(cuda, dtype, hd, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 160, 256])
 @pytest.mark.parametrize("case", ["ragged", "T<S", "noncausal", "window",
                                   "unaligned_q"])
 def test_cuda_flash_attention_bf16_tensor_cores(cuda, hd, case):
@@ -179,6 +180,60 @@ def test_cuda_model_kernel_path_matches_plain_path(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_pixtral_width_kernel_path_matches_plain_path(cuda, dtype):
+    """pixtral-12b at its published widths (d 5120, 32 / 8 heads of 160,
+    d_ff 14336, vocab 131072), 2 layers: a T = 100 forward through K2 at
+    hd 160 and three decode steps through K1 at hd 160 against the same
+    model with ``attn_impl="plain"``.  float32 at 2e-3; bf16 by relative L2
+    at 5e-2 (the two paths round attention to bf16 at different points,
+    as ``chip_smoke.py``'s ``LOGIT_REL_TOL``)."""
+    cfg = dataclasses.replace(configs.get("pixtral_12b"), n_layers=2,
+                              dtype=dtype)
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=g, device=cuda)
+
+    def agree(got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, rtol=TOLS["float32"],
+                                       atol=TOLS["float32"])
+        else:
+            got, want = got.float(), want.float()
+            assert float((got - want).norm() / want.norm()) <= 5e-2
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got, _ = forward(cfg, params, {"tokens": toks})
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        agree(got, forward(plain, params, {"tokens": toks})[0])
+        c_k, c_p = (init_cache(cfg, 2, 64, device=cuda) for _ in range(2))
+        for t in range(3):
+            lk, c_k = decode_step(cfg, params, c_k, toks[:, t:t + 1])
+            lp, c_p = decode_step(plain, params, c_p, toks[:, t:t + 1])
+            agree(lk, lp)
+        assert ops.launch_counts()["decode_attention"] == 3 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_cuda_forward_refuses_parameters_that_need_grad(cuda):
+    """No kernel has a backward yet: a CUDA forward whose parameters
+    require grad raises, where the graph would otherwise stop at the first
+    kernel; under ``torch.no_grad()`` the same forward runs."""
+    cfg = dataclasses.replace(configs.smoke("qwen3_0_6b"), dtype="float32")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    params["layers"]["attn"]["wq"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward kernels"):
+        forward(cfg, params, {"tokens": toks})
+    with torch.no_grad():
+        logits, _ = forward(cfg, params, {"tokens": toks})
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,T,M,with_s0", [
     (1, 40, 1024, 64, False), (1, 40, 1000, 64, False),   # ragged T
     (4, 40, 1, 64, True), (2, 3, 130, 32, True),          # decode; small M
@@ -208,19 +263,41 @@ def test_cuda_rwkv_scan_matches_plain(cuda, dtype, B, H, T, M, with_s0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,D,a_val", [
-    (1, 4096, 4096, None), (2, 1000, 4100, None), (4, 1, 4096, None),
-    (1, 128, 32, 1e-4)])                                  # strong decay
-def test_cuda_rglru_scan_matches_plain(cuda, B, T, D, a_val):
+@pytest.mark.parametrize("B,T,D,a_val,strided", [
+    (1, 4096, 4096, None, False), (2, 1000, 4100, None, False),
+    (4, 1, 4096, None, False), (1, 128, 32, 1e-4, False),  # strong decay
+    # the decode kernel's last T and the windowed kernel's first, a window
+    # of 256 steps -/+ 1, T = 4095; ragged D, B = 3 and B/T strides
+    (1, 16, 4096, None, False), (1, 17, 4096, None, False),
+    (1, 255, 4096, None, False), (1, 257, 4096, None, False),
+    (1, 4095, 4096, None, False), (3, 600, 4099, None, True),
+    (2, 513, 33, None, True), (1, 4096, 4096, 1e-4, False),
+    (1, 4096, 4096, 0.999, False)])                       # long memory
+def test_cuda_rglru_scan_matches_plain(cuda, B, T, D, a_val, strided):
+    """K5 against ``ref.rglru_scan`` at rtol/atol 1e-4.  At a = 0.999 the
+    absolute part is 1e-4 of the output's scale instead: both sides round
+    in float32 at every step (the plain version multiplies, then adds; the
+    kernel fuses), |h| reaches about 80, and the roundings accumulate over
+    about 1 / (1 - a) = 1,000 steps, so that even a kernel that steps in
+    the plain version's order, one thread per channel, differs from it by
+    more than 1e-4 near h = 0."""
     g = torch.Generator(cuda).manual_seed(0)
-    a = torch.sigmoid(torch.randn((B, T, D), generator=g, device=cuda))
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    if strided:          # a: a window of a wider buffer; b: (T, B, D) seen
+        a = torch.sigmoid(rand(B, T + 3, D + 5))[:, 1:T + 1, 2:D + 2]
+        b = rand(T + 2, B, D + 7).transpose(0, 1)[:, :T, 3:D + 3]
+        assert not a.is_contiguous() and not b.is_contiguous()
+    else:
+        a, b = torch.sigmoid(rand(B, T, D)), rand(B, T, D)
     if a_val is not None:
         a = torch.full_like(a, a_val)
-    b = torch.randn((B, T, D), generator=g, device=cuda)
     h = ops.rglru_scan(a, b)
     torch.cuda.synchronize()
-    torch.testing.assert_close(h, ref.rglru_scan(a, b), rtol=1e-4,
-                               atol=1e-4)
+    want = ref.rglru_scan(a, b)
+    scale = float(want.abs().max()) if a_val == 0.999 else 1.0
+    torch.testing.assert_close(h, want, rtol=1e-4, atol=1e-4 * scale)
 
 
 @pytest.mark.cuda

@@ -394,6 +394,153 @@ def test_rglru_scan_strong_decay():
                                    atol=1e-4)
 
 
+def _swz(cpr, r, c):
+    """``swz<CPR>`` of ``csrc/mma_sync.cuh``: the 16-byte chunk slot (in
+    the tile, row-major) of chunk c of row r."""
+    main = cpr & ~7
+    if main == cpr:
+        return r * cpr + (c ^ (r & 7))
+    return r * cpr + (c ^ (r & 7) if c < main
+                      else main + ((c - main) ^ ((r >> 1) & 3)))
+
+
+@pytest.mark.parametrize("cpr", [4, 8, 12, 16, 20, 24, 32])
+def test_swizzle_keeps_rows_whole_and_banks_apart(cpr):
+    """The shared tiles' XOR swizzle, for rows of 4 to 32 chunks (hd 32 to
+    256; 20 is hd 160): every row's chunks stay in the row, and the 8 rows
+    that one ldmatrix phase reads (r0 .. r0 + 7, r0 a multiple of 8) hit 8
+    different groups of 4 banks for every chunk.  Rows of 4, 8, 16 and 32
+    chunks, the only ones K1, K2 and K3 used before hd 160, keep their
+    earlier layout."""
+    for r in range(64):
+        assert sorted(_swz(cpr, r, c) - r * cpr for c in range(cpr)) == \
+            list(range(cpr))
+        if cpr in (4, 8, 16, 32):
+            old = [r * cpr + (c ^ ((r >> 1) & 3) if cpr == 4 else c ^ (r & 7))
+                   for c in range(cpr)]
+            assert [_swz(cpr, r, c) for c in range(cpr)] == old
+    for r0 in range(0, 64, 8):
+        for c in range(cpr):
+            assert len({_swz(cpr, r0 + j, c) % 8 for j in range(8)}) == 8
+
+
+def _window_schedule(a, b, steps=16, warps=16, lanes=32):
+    """A float32 model of K5's schedule.  Channels in tiles of ``lanes`` (a
+    block each, a ragged D padded and dropped); T in windows of ``warps *
+    steps`` steps.  In each window warp w folds its ``steps`` steps from the
+    identity into (A_w, B_w) (the reference's ``combine``); its carry-in is
+    the block's carry run through the pairs before w, and the next window's
+    carry is run through all of them; then warp w replays its steps from its
+    carry-in.  Steps past T are the identity (a = 1, b = 0)."""
+    a, b = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b))
+    B, T, D = a.shape
+    L = steps * warps
+    nwin = -(-T // L)
+    pad = (0, -D % lanes, 0, nwin * L - T)
+    a = torch.nn.functional.pad(a, pad, value=1.0)
+    b = torch.nn.functional.pad(b, pad, value=0.0)
+    Dp = a.shape[2]
+    a, b = (x.reshape(B, nwin, warps, steps, Dp) for x in (a, b))
+    h = torch.empty_like(a)
+    carry = torch.zeros((B, Dp))
+    for wi in range(nwin):
+        A, Bw = torch.ones((B, warps, Dp)), torch.zeros((B, warps, Dp))
+        for i in range(steps):                   # 1. fold, every warp
+            A = A * a[:, wi, :, i]
+            Bw = a[:, wi, :, i] * Bw + b[:, wi, :, i]
+        cin = []
+        for w in range(warps):                   # 2. carry in and out
+            cin.append(carry)
+            carry = A[:, w] * carry + Bw[:, w]
+        hw = torch.stack(cin, dim=1)
+        for i in range(steps):                   # 3. replay, every warp
+            hw = a[:, wi, :, i] * hw + b[:, wi, :, i]
+            h[:, wi, :, i] = hw
+    return h.reshape(B, nwin * L, Dp)[:, :T, :D]
+
+
+@pytest.mark.parametrize("T,D", [(17, 40), (255, 33), (256, 64), (257, 40),
+                                 (1000, 36), (4095, 32)])
+@pytest.mark.parametrize("a_kind", ["sigmoid", "1e-4", "0.999"])
+def test_rglru_window_schedule_algebra(T, D, a_kind):
+    """K5's windowed schedule, in float32, against the reference oracle at
+    1e-5 of the output's scale and, where the Pallas grid covers T and D
+    (it floor-divides ragged tails), the Pallas kernel in interpret mode:
+    ragged T and D, strong decay (a = 1e-4) and long memory (a = 0.999),
+    B = 2.  (T <= 16 runs the decode kernel, one thread per channel, which
+    steps as the oracle does.)"""
+    rng = np.random.default_rng(12)
+    B = 2
+    a = {"sigmoid": (1 / (1 + np.exp(-arr(rng, B, T, D)))),
+         "1e-4": np.full((B, T, D), 1e-4),
+         "0.999": np.full((B, T, D), 0.999)}[a_kind].astype(np.float32)
+    b = arr(rng, B, T, D)
+    got = _window_schedule(a, b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    wants = [jref.rglru_scan(ja, jb)]
+    if T % 256 == 0 and D % 32 == 0:
+        wants.append(jops.rglru_scan(ja, jb, chunk=256, block_d=32))
+    for want in wants:
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+def _wrapper_inputs(kernel):
+    """Inputs each wrapper's ``check`` takes, on the CPU (so it would
+    fail on the device only), float leaves as fresh leaf tensors."""
+    x = torch.zeros
+    return {"decode_attention": (x((1, 4, 32)), x((1, 2, 8, 32)),
+                                 x((1, 2, 8, 32)),
+                                 torch.ones((1,), dtype=torch.int32)),
+            "flash_attention": (x((1, 4, 8, 32)), x((1, 2, 8, 32)),
+                                x((1, 2, 8, 32))),
+            "moe_gmm": (x((2, 3, 16)), x((2, 16, 8))),
+            "rwkv_scan": (x((1, 2, 8, 16)), x((1, 2, 8, 16)),
+                          x((1, 2, 8, 16)), x((1, 2, 8, 16)), x((2, 16))),
+            "rglru_scan": (torch.full((2, 8, 16), 0.5), x((2, 8, 16)))}[
+                kernel]
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention", "flash_attention",
+                                    "moe_gmm", "rwkv_scan", "rglru_scan"])
+def test_kernel_wrappers_refuse_inputs_that_need_grad(kernel):
+    """No kernel has a backward yet: each wrapper's ``check`` raises for an
+    input that requires grad while grad mode is on, before it looks at the
+    device; under ``torch.no_grad()`` the same inputs reach the device
+    check as before.  The CPU path (``ops`` -> ``ref``) still
+    differentiates."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    args = _wrapper_inputs(kernel)
+    args[1].requires_grad_(True)
+    extra = (True,) if kernel == "flash_attention" else ()   # causal
+    with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
+        mod.check(*args, *extra)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            mod.check(*args, *extra)
+    args[1].requires_grad_(False)
+    with pytest.raises(ValueError, match="CUDA"):
+        mod.check(*args, *extra)                  # grad mode, no grad input
+    args[1].requires_grad_(True)
+    out = getattr(ops, kernel)(*args)
+    out = out[0] if isinstance(out, tuple) else out
+    (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
+     ).sum().backward()
+    assert args[1].grad is not None and args[1].grad.shape == args[1].shape
+
+
+def test_flash_attention_wrapper_takes_head_dim_160():
+    """pixtral-12b's head dim: K2's wrapper now fails its CPU tensors on
+    the device only, as at every other instantiated head dim."""
+    from repro_torch.kernels import flash_attention as k2
+    assert 160 in k2.HEAD_DIMS
+    q, k = torch.zeros((1, 32, 16, 160)), torch.zeros((1, 8, 16, 160))
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.check(q, k, k, True)
+
+
 def test_ops_refuse_other_devices():
     q = torch.zeros((1, 2, 4, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -453,6 +600,9 @@ def test_recurrence_wrappers_validate_inputs():
         k5.check(a.bfloat16(), a.bfloat16())
     with pytest.raises(ValueError, match="unit stride"):
         k5.check(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="65535"):
+        y = a[:1].expand(70000, 8, 16)
+        k5.check(y, y)
 
 
 def test_build_target_hashes_included_headers(tmp_path, monkeypatch):

@@ -89,6 +89,33 @@ def test_forward_logits_match_jax(arch):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
 
 
+def test_head_dim_160_matches_jax():
+    """pixtral-12b's head dim of 160: its smoke config at hd 160 (2 layers,
+    d_model 128, 4 heads over 2 kv heads), the forward with its prefix
+    embeddings and 4 decode steps, against the reference."""
+    jcfg, cfg = smoke_pair("pixtral_12b", dtype="float32", head_dim=160,
+                           n_layers=2)
+    assert cfg.hd == 160 and cfg.prefix_len
+    jp = j_init_params(jcfg, jax.random.PRNGKey(3))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    pre = (rng.standard_normal((2, cfg.prefix_len, cfg.d_model))
+           * 0.1).astype(np.float32)
+    want, _ = j_forward(jcfg, jp, {"tokens": jnp.asarray(toks),
+                                   "prefix_embeds": jnp.asarray(pre)})
+    got, _ = forward(cfg, p, {"tokens": torch.from_numpy(toks),
+                              "prefix_embeds": torch.from_numpy(pre)})
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL, atol=TOL)
+    jc = j_init_cache(jcfg, 2, 64)
+    c = init_cache(cfg, 2, 64, device="cpu")
+    for t in range(4):
+        want, jc = j_decode_step(jcfg, jp, jc, jnp.asarray(toks[:, t:t + 1]))
+        got, c = decode_step(cfg, p, c, torch.from_numpy(toks[:, t:t + 1]))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {t}")
+
+
 def assert_tree_close(got, want, tol=TOL):
     """Every leaf of a port tree against the JAX tree's, dtypes too."""
     flat = jax.tree_util.tree_flatten_with_path
