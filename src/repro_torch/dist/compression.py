@@ -40,6 +40,16 @@ def dequantize_int8(codes, scale):
     return codes.to(torch.float32) * scale
 
 
+def error_bound(scale) -> float:
+    """The most ``|x - dequantize_int8(*quantize_int8(x))|`` can be for a
+    per-tensor ``scale``: half a step, plus the float32 rounding of the
+    division x / scale and of the product codes * scale (each within 2^-24
+    of up to 127 steps; 2^-14 of a step covers both).  Without the rounding
+    term a value on a half step, common in bf16 data, can exceed scale / 2
+    by one float32 ulp."""
+    return float(scale) * (0.5 + 2 ** -14)
+
+
 def quantize_tree(tree, min_size: int = 64):
     """Quantize every float leaf with ``numel >= min_size``; small leaves
     (norms, scalars) stay exact.  A stacked leaf (leading layer dim) gets

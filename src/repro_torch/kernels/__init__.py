@@ -9,8 +9,9 @@ plain PyTorch version in ``ref.py``, and dispatch by device in ``ops.py``.
 Kernels:
   decode_attention — K1: one-token query vs a long KV cache or a ring
                      (serve hot loop)
-  flash_attention  — K2: GQA attention forward, causal or not, with an
-                     optional sliding window (prefill)
+  flash_attention  — K2: GQA attention, causal or not, with an optional
+                     sliding window (prefill, training), and its backward
+                     (``csrc/flash_attention_bwd.cu``)
   moe_gmm          — K3: the per-expert batched matmul of the MoE block,
                      x (E,C,D) @ w (E,D,F) over the capacity buffers
   rwkv_scan        — K4: the chunked WKV6 recurrence of RWKV6, from a state

@@ -560,37 +560,6 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kTcRows = 16;   // heads per block (rows of the m16n8k16 tile)
 constexpr int kTcTK = 64;     // keys per tile: 16 per warp
 
-// Copy ROWS rows of HD bf16 (rows row0 + r of g, row stride rs) into the
-// swizzled tile s: cp.async where a chunk is 16-byte aligned, element
-// loads where it is not, zeros for rows at or past nvalid.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long rs, int row0, int nvalid) {
-  constexpr int CPR = HD / 8;
-  constexpr int N = ROWS * CPR;              // 16-byte chunks in the tile
-  // a fixed trip count, unrolled: the row, chunk and swizzle of each of a
-  // thread's chunks are affine in j, so their arithmetic is hoisted
-#pragma unroll
-  for (int j = 0; j < (N + kThreads - 1) / kThreads; ++j) {
-    const int i = (int)threadIdx.x + j * kThreads;
-    if (N % kThreads != 0 && i >= N) break;
-    const int r = i / CPR, c = i - r * CPR;
-    __nv_bfloat16* dst = s + swz<CPR>(r, c);
-    if (row0 + r < nvalid) {
-      const __nv_bfloat16* src = g + (long long)(row0 + r) * rs + c * 8;
-      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        cp_async16(dst, src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = src[e];
-      }
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
 template <int HD>
 struct TcShape {
   static constexpr bool kQRegs = HD <= 128;   // Q fragments in registers
@@ -634,10 +603,10 @@ decode_attention_tc(const __nv_bfloat16* __restrict__ q,
   const int ntiles = (w.end - w.start + kTcTK - 1) / kTcTK;
 
   // the block's heads as rows of the q tile; rows past gc are zeros
-  load_tile<HD, kTcRows>(q_s, q + w.b * q_sb + (long long)w.head0 * q_sh,
-                         q_sh, 0, w.gc);
-  load_tile<HD, kTcTK>(ring, kb, k_ss, w.start, w.end);
-  load_tile<HD, kTcTK>(ring + kTcTK * HD, vb, v_ss, w.start, w.end);
+  load_tile<HD, kTcRows, kThreads>(
+      q_s, q + w.b * q_sb + (long long)w.head0 * q_sh, q_sh, 0, w.gc);
+  load_tile<HD, kTcTK, kThreads>(ring, kb, k_ss, w.start, w.end);
+  load_tile<HD, kTcTK, kThreads>(ring + kTcTK * HD, vb, v_ss, w.start, w.end);
   cp_commit();
 
   float o[DT][4];
@@ -654,8 +623,9 @@ decode_attention_tc(const __nv_bfloat16* __restrict__ q,
     const int t0 = w.start + t * kTcTK;
     if (t + 1 < ntiles) {
       __nv_bfloat16* nk = ring + ((t + 1) & 1) * 2 * kTcTK * HD;
-      load_tile<HD, kTcTK>(nk, kb, k_ss, t0 + kTcTK, w.end);
-      load_tile<HD, kTcTK>(nk + kTcTK * HD, vb, v_ss, t0 + kTcTK, w.end);
+      load_tile<HD, kTcTK, kThreads>(nk, kb, k_ss, t0 + kTcTK, w.end);
+      load_tile<HD, kTcTK, kThreads>(nk + kTcTK * HD, vb, v_ss, t0 + kTcTK,
+                                     w.end);
     }
     cp_commit();
     cp_wait_one();

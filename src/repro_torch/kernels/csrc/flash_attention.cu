@@ -51,6 +51,11 @@
 // owns 8 query rows, computes their scores, reduces with warp shuffles and
 // folds p @ v into register accumulators.
 //
+// lse: when the caller passes a (B, H, Tq) float32 buffer, both designs
+// write each query row's m + log(l), the logsumexp of its scaled, masked
+// scores, where they normalise; the backward (flash_attention_bwd.cu)
+// recomputes P from it.  Serving and prefill pass null.
+//
 // Every tensor is read through its strides, so the model's (B, T, H, hd)
 // projections are passed as permuted views and never copied.  The dynamic
 // shared-memory attribute is set once per instantiation and device, not
@@ -89,7 +94,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H,
                        int Hkv, int Tq, int S, int causal, int window,
                        float scale,
                        long long q_sb, long long q_sh, long long q_st,
@@ -227,6 +233,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < kDim; ++e)
         ob[qi * o_st + tx + 32 * e] = from_f32<T>(acc[a][e] / lv);
+      if (lse != nullptr && tx == 0)
+        lse[((long long)b * H + h) * Tq + qi] = m[a] + logf(lv);
     }
   }
 }
@@ -236,38 +244,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 128;   // 4 warps, 16 query rows each
 constexpr int kTcBQ = 64;
-
-// Copy ROWS rows of HD bf16 (rows row0 + r of g, row stride rs) into the
-// swizzled tile s: cp.async where a chunk is 16-byte aligned, element
-// loads where it is not, zeros for rows at or past nvalid.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long rs, int row0,
-                                          int nvalid) {
-  constexpr int CPR = HD / 8;
-  constexpr int N = ROWS * CPR;              // 16-byte chunks in the tile
-  // a fixed trip count, unrolled: the row, chunk and swizzle of each of a
-  // thread's chunks are affine in j, so their arithmetic is hoisted
-#pragma unroll
-  for (int j = 0; j < (N + kTcThreads - 1) / kTcThreads; ++j) {
-    const int i = (int)threadIdx.x + j * kTcThreads;
-    if (N % kTcThreads != 0 && i >= N) break;
-    const int r = i / CPR, c = i - r * CPR;
-    __nv_bfloat16* dst = s + swz<CPR>(r, c);
-    if (row0 + r < nvalid) {
-      const __nv_bfloat16* src = g + (long long)(row0 + r) * rs + c * 8;
-      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        cp_async16(dst, src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dst[e] = src[e];
-      }
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
 
 template <int HD>
 struct TcShape {
@@ -282,7 +258,8 @@ __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, int H, int Hkv, int Tq,
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int H, int Hkv, int Tq,
                    int S, int causal, int window, float scale,
                    long long q_sb, long long q_sh, long long q_st,
                    long long k_sb, long long k_sh, long long k_ss,
@@ -319,10 +296,10 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
   if (window > 0) kbeg = max(0, (q0 + offset - window + 1) / BK * BK);
   const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
-  load_tile<HD, kTcBQ>(q_s, qb, q_st, q0, Tq);
+  load_tile<HD, kTcBQ, kTcThreads>(q_s, qb, q_st, q0, Tq);
   if (ntiles > 0) {
-    load_tile<HD, BK>(ring, kb, k_ss, kbeg, S);
-    load_tile<HD, BK>(ring + BK * HD, vb, v_ss, kbeg, S);
+    load_tile<HD, BK, kTcThreads>(ring, kb, k_ss, kbeg, S);
+    load_tile<HD, BK, kTcThreads>(ring + BK * HD, vb, v_ss, kbeg, S);
   }
   cp_commit();
 
@@ -339,8 +316,8 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
     const int k0 = kbeg + t * BK;
     if (t + 1 < ntiles) {
       __nv_bfloat16* nk = ring + ((t + 1) & 1) * 2 * BK * HD;
-      load_tile<HD, BK>(nk, kb, k_ss, k0 + BK, S);
-      load_tile<HD, BK>(nk + BK * HD, vb, v_ss, k0 + BK, S);
+      load_tile<HD, BK, kTcThreads>(nk, kb, k_ss, k0 + BK, S);
+      load_tile<HD, BK, kTcThreads>(nk + BK * HD, vb, v_ss, k0 + BK, S);
     }
     cp_commit();
     cp_wait_one();
@@ -457,6 +434,8 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int qi = q0 + warp * 16 + g + rr * 8;
+    if (lse != nullptr && t4 == 0 && qi < Tq)
+      lse[((long long)b * H + h) * Tq + qi] = mrow[rr] + logf(fmaxf(l, 1e-30f));
     if (qi < Tq) {
       __nv_bfloat16* orow = ob + qi * o_st;
 #pragma unroll
@@ -469,9 +448,9 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int Hkv, int Tq, int S, int causal, int window,
-              const long long* st, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int H, int Hkv, int Tq, int S, int causal,
+              int window, const long long* st, cudaStream_t stream) {
   static unsigned done = 0;
   const size_t smem = TcShape<HD>::smem;
   cudaError_t err =
@@ -479,17 +458,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + kTcBQ - 1) / kTcBQ, B * H);
   flash_attention_tc<HD><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      H, Hkv, Tq, S, causal, window, (float)pow((double)HD, -0.5), st[0],
+      lse, H, Hkv, Tq, S, causal, window, (float)pow((double)HD, -0.5), st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11]);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int Tq, int S, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int Hkv, int Tq, int S, int causal, int window,
            const long long* st, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)kBQ * HD + (size_t)kBK * (HD + 1) + (size_t)kBK * HD +
@@ -501,58 +481,56 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Tq, S, causal,
-      window, (float)pow((double)HD, -0.5), st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, Hkv, Tq, S,
+      causal, window, (float)pow((double)HD, -0.5), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return (int)cudaGetLastError();
 }
 
 // bf16 goes to the tensor cores, float32 to the CUDA-core kernel.
 template <int HD>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 void* out, int B, int H, int Hkv, int Tq, int S, int causal,
-                 int window, const long long* st, cudaStream_t s) {
+                 void* out, float* lse, int B, int H, int Hkv, int Tq, int S,
+                 int causal, int window, const long long* st,
+                 cudaStream_t s) {
   if (dtype == 0)
-    return launch<float, HD>(q, k, v, out, B, H, Hkv, Tq, S, causal, window,
-                             st, s);
+    return launch<float, HD>(q, k, v, out, lse, B, H, Hkv, Tq, S, causal,
+                             window, st, s);
   if (dtype == 1)
-    return launch_tc<HD>(q, k, v, out, B, H, Hkv, Tq, S, causal, window, st,
-                         s);
+    return launch_tc<HD>(q, k, v, out, lse, B, H, Hkv, Tq, S, causal, window,
+                         st, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd in {32, 64, 128, 160, 256}; window 0
-// means none, else it needs causal.  strides
+// means none, else it needs causal.  lse: null, or (B, H, Tq) float32,
+// contiguous, where each query row's m + log(l) (the logsumexp of its
+// scaled, masked scores) is written for the backward.  strides
 // (elements): q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, out_sb,
 // out_sh, out_st; the head-dim stride of every tensor is 1.  Returns a
 // cudaError_t (0 on success).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* out, int B, int H,
-                                     int Hkv, int Tq, int S, int hd,
-                                     int causal, int window,
+                                     const void* v, void* out, float* lse,
+                                     int B, int H, int Hkv, int Tq, int S,
+                                     int hd, int causal, int window,
                                      const long long* strides, void* stream) {
   if (H % Hkv != 0 || (causal && Tq > S) || window < 0 ||
       (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_K2_HD(HD)                                                     \
+  case HD:                                                                  \
+    return launch_dtype<HD>(dtype, q, k, v, out, lse, B, H, Hkv, Tq, S,     \
+                            causal, window, strides, s);
   switch (hd) {
-    case 32:
-      return launch_dtype<32>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
-                              window, strides, s);
-    case 64:
-      return launch_dtype<64>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
-                              window, strides, s);
-    case 128:
-      return launch_dtype<128>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
-                               window, strides, s);
-    case 160:
-      return launch_dtype<160>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
-                               window, strides, s);
-    case 256:
-      return launch_dtype<256>(dtype, q, k, v, out, B, H, Hkv, Tq, S, causal,
-                               window, strides, s);
+    REPRO_K2_HD(32)
+    REPRO_K2_HD(64)
+    REPRO_K2_HD(128)
+    REPRO_K2_HD(160)
+    REPRO_K2_HD(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_K2_HD
 }

@@ -1,5 +1,6 @@
-// Helpers shared by the bf16 tensor-core kernels (K1, K2, K3): cp.async
-// 16-byte copies into shared memory, ldmatrix fragment loads from
+// Helpers shared by the bf16 tensor-core kernels (K1, K2 and its
+// backward, K3): cp.async 16-byte copies into shared memory (load_tile
+// for a swizzled tile of rows), ldmatrix fragment loads from
 // XOR-swizzled tiles, mma.sync.m16n8k16 (bf16 in, float32 accumulate), and
 // the once-per-device dynamic shared-memory attribute.  Each source that
 // includes this header is rebuilt when the header changes (_build.py
@@ -8,6 +9,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -76,6 +78,39 @@ __device__ __forceinline__ int swz(int r, int c) {
     const int cs = c < kMain ? c ^ (r & 7)
                              : kMain + ((c - kMain) ^ ((r >> 1) & 3));
     return (r * CPR + cs) * 8;
+  }
+}
+
+// Copy ROWS rows of HD bf16 (rows row0 + r of g, row stride rs) into the
+// swizzled tile s, THREADS threads of the block taking part: cp.async
+// where a chunk is 16-byte aligned, element loads where it is not, zeros
+// for rows at or past nvalid.  The caller commits and waits.
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
+                                          const __nv_bfloat16* g,
+                                          long long rs, int row0,
+                                          int nvalid) {
+  constexpr int CPR = HD / 8;
+  constexpr int N = ROWS * CPR;              // 16-byte chunks in the tile
+  // a fixed trip count, unrolled: the row, chunk and swizzle of each of a
+  // thread's chunks are affine in j, so their arithmetic is hoisted
+#pragma unroll
+  for (int j = 0; j < (N + THREADS - 1) / THREADS; ++j) {
+    const int i = (int)threadIdx.x + j * THREADS;
+    if (N % THREADS != 0 && i >= N) break;
+    const int r = i / CPR, c = i - r * CPR;
+    __nv_bfloat16* dst = s + swz<CPR>(r, c);
+    if (row0 + r < nvalid) {
+      const __nv_bfloat16* src = g + (long long)(row0 + r) * rs + c * 8;
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = src[e];
+      }
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
   }
 }
 

@@ -27,7 +27,8 @@ def _on(t) -> str:
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B,H,T,hd); k,v: (B,Hkv,S,hd) -> (B,H,T,hd)."""
+    """q: (B,H,T,hd); k,v: (B,Hkv,S,hd) -> (B,H,T,hd); differentiable on
+    both devices (K2's backward kernel on the card)."""
     if _on(q) == "cuda":
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.attention(q, k, v, causal=causal, window=window)
@@ -64,10 +65,15 @@ def rglru_scan(a, b):
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per kernel since the last ``reset_launch_counts``."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    """Kernel launches per kernel since the last ``reset_launch_counts``;
+    ``flash_attention_bwd`` counts K2's backward calls (three CUDA launches
+    each) apart from its forward."""
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    counts["flash_attention_bwd"] = _flash.bwd_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    _flash.bwd_launches = 0

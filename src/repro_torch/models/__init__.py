@@ -4,7 +4,7 @@ RWKV6 and the RG-LRU hybrid with its sliding-window ring cache.  MoE raises
 ``NotImplementedError`` naming the ROADMAP item that brings it."""
 
 from .config import ModelConfig
-from .model import decode_step, forward, init_cache, init_params
+from .model import decode_step, forward, init_cache, init_params, loss_fn
 
 __all__ = ["ModelConfig", "decode_step", "forward", "init_cache",
-           "init_params"]
+           "init_params", "loss_fn"]

@@ -33,6 +33,8 @@ from typing import Any
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.core.torchstate import tree_map
 from .config import ModelConfig
 from . import layers as L
@@ -280,14 +282,28 @@ def forward(cfg: ModelConfig, params, batch):
 
 def forward_hidden(cfg: ModelConfig, params, batch):
     """Forward up to the final norm (no logits).  Returns (x, aux_total):
-    the MoE aux loss summed over layers, 0.0 without experts."""
+    the MoE aux loss summed over layers, 0.0 without experts.
+
+    With ``cfg.remat`` and grad mode on, each scanned layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+    layer's input for the backward and recomputes the rest there: the
+    reference's ``jax.checkpoint(..., nothing_saveable)``.  The unrolled
+    tail runs without it, as in the reference."""
     tokens = batch["tokens"]
     x = params["embed"][tokens.long()]
     if cfg.prefix_len and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
-    for p_layer in _scanned(cfg, params["layers"]) + params["tail"]:
+    for p_layer in _scanned(cfg, params["layers"]):
+        if remat:
+            x, aux = checkpoint(_block, cfg, p_layer, x, positions, None,
+                                None, use_reentrant=False)
+        else:
+            x, aux = _block(cfg, p_layer, x, positions, None, None)
+        aux_total = aux_total + aux
+    for p_layer in params["tail"]:
         x, aux = _block(cfg, p_layer, x, positions, None, None)
         aux_total = aux_total + aux
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total

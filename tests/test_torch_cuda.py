@@ -216,20 +216,149 @@ def test_cuda_pixtral_width_kernel_path_matches_plain_path(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_forward_refuses_parameters_that_need_grad(cuda):
-    """No kernel has a backward yet: a CUDA forward whose parameters
-    require grad raises, where the graph would otherwise stop at the first
-    kernel; under ``torch.no_grad()`` the same forward runs."""
-    cfg = dataclasses.replace(configs.smoke("qwen3_0_6b"), dtype="float32")
+@pytest.mark.parametrize("arch,kernel", [("rwkv6_3b", "rwkv_scan"),
+                                         ("recurrentgemma_9b", "rglru_scan"),
+                                         ("qwen3_moe_235b", "moe_gmm")])
+def test_cuda_forward_refuses_parameters_that_need_grad(cuda, arch, kernel):
+    """K3, K4 and K5 have no backward yet: a CUDA forward whose parameters
+    require grad raises at the first of them, where the graph would
+    otherwise stop there; under ``torch.no_grad()`` the same forward
+    runs."""
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
     params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
                          device=cuda)
     toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
-    params["layers"]["attn"]["wq"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward kernels"):
+    params["embed"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
         forward(cfg, params, {"tokens": toks})
     with torch.no_grad():
         logits, _ = forward(cfg, params, {"tokens": toks})
     assert torch.isfinite(logits).all()
+
+
+# K2's backward: (B, H, Hkv, T, S, hd, causal, window), the cases
+# chip_smoke.py checks: causal T = S, full, T < S, a window of 2048 at
+# T = S = 4096 (MQA), ragged T and S, every head dim, G = 1, 2, 8 and 16
+K2_BWD_CASES = [
+    (2, 16, 8, 1024, 1024, 128, True, 0),
+    (2, 16, 8, 1024, 1024, 128, False, 0),
+    (2, 16, 8, 512, 1024, 128, True, 0),
+    (1, 16, 1, 4096, 4096, 256, True, 2048),
+    (2, 8, 8, 1000, 1000, 64, True, 0), (2, 8, 4, 77, 300, 160, True, 0),
+    (2, 32, 8, 1024, 1024, 160, True, 0), (2, 4, 1, 100, 130, 32, False, 0),
+    (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,S,hd,causal,window", K2_BWD_CASES)
+def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, B, H, Hkv,
+                                                     T, S, hd, causal,
+                                                     window):
+    """K2's lse and its backward kernel against ``ref.attention_lse`` and
+    ``ref.attention_backward`` on the same inputs, passed as the model's
+    transposed (B, T, H, hd) views, each gradient at 2e-3 (float32) or 2e-2
+    (bf16) of its largest entry."""
+    from repro_torch.kernels import flash_attention as k2
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dt)
+    q = rand(B, T, H, hd).transpose(1, 2)
+    k, v = (rand(B, S, Hkv, hd).transpose(1, 2) for _ in range(2))
+    dout = rand(B, T, H, hd).transpose(1, 2)
+    out, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+    _, got_lse = k2.forward(q, k, v, causal, window, with_lse=True)
+    got = k2.backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_lse, lse, rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+    want = ref.attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                  window=window)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=TOLS[dtype] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_autograd(cuda, dtype):
+    """Under grad mode ``ops.flash_attention`` goes through
+    ``FlashAttention``: one forward launch, and one backward call that
+    gives the plain attention's gradients."""
+    g = torch.Generator(cuda).manual_seed(1)
+    dt = getattr(torch, dtype)
+    leaves = [torch.randn(s, generator=g, device=cuda).to(dt)
+              .requires_grad_(True)
+              for s in ((2, 100, 8, 64), (2, 100, 2, 64), (2, 100, 2, 64))]
+    views = [t.transpose(1, 2) for t in leaves]
+    dout = torch.randn((2, 8, 100, 64), generator=g, device=cuda).to(dt)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(*views), leaves, dout)
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
+    want = torch.autograd.grad(ref.attention(*views), leaves, dout)
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=TOLS[dtype] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "pixtral_12b"])
+def test_cuda_dense_gradients_kernel_path_match_plain_path(cuda, arch):
+    """Smoke dense / VLM models in float32: ``loss_fn`` gradients through K2
+    and its backward kernel (remat: two forward launches and one backward
+    call per layer) against the same model with ``attn_impl="plain"`` on
+    the card, each leaf by relative L2 at 2e-3."""
+    from repro_torch.core.torchstate import tree_leaves
+    from repro_torch.models import loss_fn
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="plain")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=g, device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.prefix_len:
+        batch["prefix_embeds"] = torch.randn(
+            (2, cfg.prefix_len, cfg.d_model), generator=g, device=cuda) * 0.1
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(loss_fn(cfg, params, batch), leaves)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    want = torch.autograd.grad(loss_fn(plain, params, batch), leaves)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_training_steps_match_plain_path(cuda):
+    """Three AdamW steps of smoke qwen3 in float32 through the kernels
+    against the same steps with ``attn_impl="plain"``: the losses agree to
+    1e-4 and the loss falls."""
+    from repro_torch.train import (OptConfig, TrainState, shard_batch,
+                                   synthetic_batches)
+    cfg = dataclasses.replace(configs.smoke("qwen3_0_6b"), dtype="float32")
+    opt = OptConfig(lr=3e-3, warmup=2, decay_steps=20)
+    losses = {}
+    for impl in ("xla", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        ts = TrainState(c, opt, init_params(
+            c, torch.Generator(cuda).manual_seed(0), device=cuda))
+        data = synthetic_batches(c.vocab, 4, 64)
+        losses[impl] = [float(ts.step(shard_batch(None, next(data),
+                                                  device=cuda))["loss"])
+                        for _ in range(3)]
+        assert ts.color == 3
+    torch.testing.assert_close(losses["xla"], losses["plain"], rtol=1e-4,
+                               atol=0)
+    assert losses["xla"][-1] < losses["xla"][0]
 
 
 @pytest.mark.cuda

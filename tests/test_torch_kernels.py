@@ -502,19 +502,19 @@ def _wrapper_inputs(kernel):
                 kernel]
 
 
-@pytest.mark.parametrize("kernel", ["decode_attention", "flash_attention",
-                                    "moe_gmm", "rwkv_scan", "rglru_scan"])
+@pytest.mark.parametrize("kernel", ["decode_attention", "moe_gmm",
+                                    "rwkv_scan", "rglru_scan"])
 def test_kernel_wrappers_refuse_inputs_that_need_grad(kernel):
-    """No kernel has a backward yet: each wrapper's ``check`` raises for an
-    input that requires grad while grad mode is on, before it looks at the
-    device; under ``torch.no_grad()`` the same inputs reach the device
-    check as before.  The CPU path (``ops`` -> ``ref``) still
-    differentiates."""
+    """The kernels without a backward (K3, K4, K5; K1 is decode only): each
+    wrapper's ``check`` raises for an input that requires grad while grad
+    mode is on, before it looks at the device; under ``torch.no_grad()``
+    the same inputs reach the device check as before.  The CPU path
+    (``ops`` -> ``ref``) still differentiates."""
     import importlib
     mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
     args = _wrapper_inputs(kernel)
     args[1].requires_grad_(True)
-    extra = (True,) if kernel == "flash_attention" else ()   # causal
+    extra = ()
     with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
         mod.check(*args, *extra)
     with torch.no_grad():
@@ -526,6 +526,22 @@ def test_kernel_wrappers_refuse_inputs_that_need_grad(kernel):
     args[1].requires_grad_(True)
     out = getattr(ops, kernel)(*args)
     out = out[0] if isinstance(out, tuple) else out
+    (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
+     ).sum().backward()
+    assert args[1].grad is not None and args[1].grad.shape == args[1].shape
+
+
+def test_flash_attention_check_accepts_inputs_that_need_grad():
+    """K2 has a backward kernel: its ``check`` takes an input that
+    requires grad under grad mode and fails these CPU tensors on the device
+    only, and ``ops.flash_attention`` differentiates them on the CPU."""
+    from repro_torch.kernels import flash_attention as k2
+    args = _wrapper_inputs("flash_attention")
+    args[1].requires_grad_(True)
+    assert torch.is_grad_enabled()
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.check(*args, True)
+    out = ops.flash_attention(*args)
     (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
      ).sum().backward()
     assert args[1].grad is not None and args[1].grad.shape == args[1].shape
@@ -621,7 +637,91 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "// edited\n")
     users = {n for n in names
              if '#include "mma_sync.cuh"' in (csrc / f"{n}.cu").read_text()}
-    assert users == {"decode_attention", "flash_attention", "moe_gmm",
-                     "rwkv_scan"}
+    assert users == {"decode_attention", "flash_attention",
+                     "flash_attention_bwd", "moe_gmm", "rwkv_scan"}
     for n in names:
         assert (_build._target(n) != before[n]) == (n in users), n
+
+
+def _attention_inputs(rng, B, H, Hkv, T, S, hd):
+    return (arr(rng, B, H, T, hd), arr(rng, B, Hkv, S, hd),
+            arr(rng, B, Hkv, S, hd), arr(rng, B, H, T, hd))
+
+
+@pytest.mark.parametrize("T,S,causal,G", [
+    (24, 24, True, 1), (24, 24, True, 4), (24, 24, False, 1),
+    (16, 40, True, 4), (16, 40, False, 4), (33, 57, True, 1)])
+def test_attention_backward_matches_autograd_and_jax_vjp(T, S, causal, G):
+    """K2's plain backward (the formula its kernel computes) against
+    ``torch.autograd`` of the plain attention and ``jax.vjp`` of the JAX
+    package's oracle, float32 at 1e-5: causal (T = S and T < S), full, and
+    G = 1 and 4 query heads per kv head."""
+    import jax
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(7)
+    B, Hkv, hd = 2, 2, 32
+    q, k, v, do = _attention_inputs(rng, B, G * Hkv, Hkv, T, S, hd)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out, lse = ref.attention_lse(tq, tk, tv, causal=causal)
+    want = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    got = ref.attention_backward(tq.detach(), tk.detach(), tv.detach(),
+                                 out.detach(), lse.detach(),
+                                 torch.from_numpy(do), causal=causal)
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention(a, b, c, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, w, j in zip(got, want, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("T,S,window,G", [(40, 40, 9, 2), (30, 70, 16, 1),
+                                          (64, 64, 64, 4)])
+def test_attention_backward_window_matches_model_attention(T, S, window, G):
+    """With a sliding window, the plain backward against ``torch.autograd``
+    of the port's model attention (``layers.attention``, the (B,T,H,hd)
+    layout and ``_mask_bias``), positions bottom-right aligned."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import attention
+    rng = np.random.default_rng(8)
+    B, Hkv, hd = 2, 2, 32
+    q, k, v, do = _attention_inputs(rng, B, G * Hkv, Hkv, T, S, hd)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                    tv.transpose(1, 2), torch.arange(S - T, S),
+                    torch.arange(S), window=window).transpose(1, 2)
+    want = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    o, lse = ref.attention_lse(tq.detach(), tk.detach(), tv.detach(),
+                               window=window)
+    got = ref.attention_backward(tq.detach(), tk.detach(), tv.detach(), o,
+                                 lse, torch.from_numpy(do), window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("T,S,causal,window", [(24, 24, True, 0),
+                                               (16, 40, True, 0),
+                                               (16, 40, False, 0),
+                                               (40, 40, True, 9)])
+def test_attention_lse_matches_logsumexp(T, S, causal, window):
+    """``ref.attention_lse``: the output of ``ref.attention`` and the
+    logsumexp of each row's scaled, masked scores, in float64 here."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(9)
+    q, k, v, _ = _attention_inputs(rng, 2, 4, 2, T, S, 32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = ref.attention_lse(tq, tk, tv, causal=causal, window=window)
+    s = np.einsum("bkgth,bksh->bkgts", q.reshape(2, 2, 2, T, 32)
+                  .astype(np.float64), k.astype(np.float64)) * 32 ** -0.5
+    i, j = np.arange(T)[:, None] + S - T, np.arange(S)[None, :]
+    seen = (j <= i) & (j > i - window) if window else j <= i
+    s = np.where(seen if causal else True, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want.reshape(2, 4, T),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        out.numpy(), ref.attention(tq, tk, tv, causal=causal,
+                                   window=window).numpy())
