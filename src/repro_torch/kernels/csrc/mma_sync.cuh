@@ -1,8 +1,9 @@
 // Helpers shared by the bf16 tensor-core kernels (K1, K2 and its
-// backward, K3): cp.async 16-byte copies into shared memory (load_tile
-// for a swizzled tile of rows), ldmatrix fragment loads from
-// XOR-swizzled tiles, mma.sync.m16n8k16 (bf16 in, float32 accumulate), and
-// the once-per-device dynamic shared-memory attribute.  Each source that
+// backward, K3 and its backward): cp.async 16-byte copies into shared
+// memory (stage8 for one chunk, load_tile for a swizzled tile of rows),
+// ldmatrix fragment loads from XOR-swizzled tiles, mma.sync.m16n8k16 (bf16
+// in, float32 accumulate), and the once-per-device dynamic shared-memory
+// attribute.  Each source that
 // includes this header is rebuilt when the header changes (_build.py
 // hashes the headers a source includes).
 #pragma once
@@ -78,6 +79,21 @@ __device__ __forceinline__ int swz(int r, int c) {
     const int cs = c < kMain ? c ^ (r & 7)
                              : kMain + ((c - kMain) ^ ((r >> 1) & 3));
     return (r * CPR + cs) * 8;
+  }
+}
+
+// The 8 bf16 at src, of which the first n lie inside the tensor, into the
+// 16-byte chunk dst: one cp.async when all 8 are inside and src is
+// 16-byte aligned, else element loads with zero fill (src is dereferenced
+// only inside the tensor).
+__device__ __forceinline__ void stage8(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* src, int n) {
+  if (n >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src);
+  } else {
+    const __nv_bfloat16 z = __float2bfloat16(0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = i < n ? src[i] : z;
   }
 }
 

@@ -308,21 +308,6 @@ constexpr size_t tc_smem() {
          ((size_t)kTcBK * 32 * W + (size_t)16 * MT * kTcBK);
 }
 
-// The 8 bf16 at src, of which the first n lie inside the tensor, into the
-// 16-byte chunk dst: one cp.async when all 8 are inside and src is
-// 16-byte aligned, else element loads with zero fill (src is dereferenced
-// only inside the tensor).
-__device__ __forceinline__ void stage8(__nv_bfloat16* dst,
-                                       const __nv_bfloat16* src, int n) {
-  if (n >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    cp_async16(dst, src);
-  } else {
-    const __nv_bfloat16 z = __float2bfloat16(0.f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = i < n ? src[i] : z;
-  }
-}
-
 // MT m16 tiles of rows, W warps of 32 columns each.
 template <int MT, int W>
 __global__ void __launch_bounds__(32 * W)

@@ -5,8 +5,11 @@ The wrapper checks its inputs and raises on anything the kernel does not
 take, allocates the outputs (and, for T > 1, the float32 scratch of the
 chunk states), launches on the current stream and counts the call: one
 launch for T == 1, three for a prefill (chunk states, the scan over them,
-the chunk outputs), all from one C call.  It runs only on CUDA tensors: ``ops.rwkv_scan`` sends CPU tensors
-to ``ref.rwkv_scan`` instead.
+the chunk outputs), all from one C call.  It runs only on CUDA tensors:
+``ops.rwkv_scan`` sends CPU tensors to ``ref.rwkv_scan`` instead.  Under
+grad mode, with an input that requires grad, the call goes through
+``RWKVScan``: its forward keeps the chunk states the forward wrote into its
+scratch, and its backward launches ``csrc/rwkv_scan_bwd.cu``.
 """
 
 from __future__ import annotations
@@ -16,14 +19,15 @@ import ctypes
 import torch
 
 from . import _build
-from ._grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_SIZE = 64              # M: the kernel's shared-memory tiles
 CHUNK = 64                      # csrc/rwkv_scan.cu kC
 
-launches = 0                    # kernel launches since the last reset
+launches = 0                    # forward calls since the last reset
+bwd_launches = 0                # backward calls (four CUDA launches each)
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -38,10 +42,21 @@ def _kernel():
     return _fn
 
 
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.load("rwkv_scan_bwd").repro_rwkv_scan_bwd
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+                       + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
 def check(r, k, v, logw, u, S0=None) -> None:
-    """Raise ``RuntimeError`` for an input that would need a gradient
-    (``refuse_grad``), ``ValueError`` unless the kernel takes these inputs."""
-    refuse_grad("rwkv_scan", r, k, v, logw, u, S0)
+    """Raise ``ValueError`` unless the kernel takes these inputs.  An input
+    that requires grad is taken: ``rwkv_scan`` differentiates it."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"want r/k/v/logw (B,H,T,M) of one shape; got "
                          f"{[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -72,16 +87,27 @@ def check(r, k, v, logw, u, S0=None) -> None:
             raise ValueError("all inputs must be on one CUDA device")
 
 
-def rwkv_scan(r, k, v, logw, u, S0=None):
-    """r,k,v: (B,H,T,M) float32 or bf16; logw: (B,H,T,M) float32 (<= 0);
-    u: (H,M) float32; S0: (B,H,M,M) float32 or None (zeros) -> (o
-    (B,H,T,M) float32, a view of a (B,T,H,M) buffer; S (B,H,M,M)
-    float32).  Every input is read through its strides."""
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _heads_view(B, H, T, M, dtype, device):
+    """An empty (B,H,T,M) view of a (B,T,H,M) buffer, the model's layout."""
+    return torch.empty((B, T, H, M), dtype=dtype,
+                       device=device).transpose(1, 2)
+
+
+def forward(r, k, v, logw, u, S0=None):
+    """One K4 call on checked inputs -> (o, S, states): states is the
+    float32 scratch (B*H, chunks, 64, 64) holding each chunk's start state
+    after the call, or None for T == 1."""
     global launches
-    check(r, k, v, logw, u, S0)
     B, H, T, M = r.shape
-    o = torch.empty((B, T, H, M), dtype=torch.float32,
-                    device=r.device).transpose(1, 2)
+    o = _heads_view(B, H, T, M, torch.float32, r.device)
     S = torch.empty((B, H, M, M), dtype=torch.float32, device=r.device)
     buf = dec = None
     if T > 1:                   # per chunk: its state delta, then its start
@@ -96,14 +122,111 @@ def rwkv_scan(r, k, v, logw, u, S0=None):
         *s0, S.stride(0), S.stride(1))
     fn = _kernel()
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                logw.data_ptr(), u.data_ptr(),
-                None if S0 is None else S0.data_ptr(), o.data_ptr(),
-                S.data_ptr(), None if buf is None else buf.data_ptr(),
-                None if dec is None else dec.data_ptr(), B, H, T, M, strides,
-                stream)
+                logw.data_ptr(), u.data_ptr(), _ptr(S0), o.data_ptr(),
+                S.data_ptr(), _ptr(buf), _ptr(dec), B, H, T, M, strides,
+                _stream(r))
     if rc != 0:
         raise RuntimeError(f"rwkv_scan kernel launch failed: cudaError_t {rc}")
     launches += 1
-    return o, S
+    return o, S, buf
+
+
+def backward(r, k, v, logw, u, S0, states, do, dS=None):
+    """K4's backward on the card, from K4's inputs, the chunk-start
+    ``states`` its forward left (None for T == 1), the gradient ``do``
+    (B,H,T,M) float32 of o and ``dS`` (B,H,M,M) float32 of the final state
+    (None: zeros) -> (dr, dk, dv in r.dtype, as (B,H,T,M) views of
+    (B,T,H,M) buffers; dlogw float32, the same; du (H,M) float32, summed
+    over b and t; dS0 (B,H,M,M) float32, or None without S0).  Every input is read through its strides.  Four CUDA
+    launches: each chunk's q_in^T do, the scan of the chunk-state gradients
+    from the last chunk back, each chunk's gradients, the sum of du."""
+    global bwd_launches
+    check(r, k, v, logw, u, S0)
+    B, H, T, M = r.shape
+    nc = -(-T // CHUNK)
+    if do.shape != r.shape or do.dtype != torch.float32 \
+            or do.device != r.device or do.stride(-1) != 1:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype}: want "
+                         f"{tuple(r.shape)} float32 on {r.device} with a "
+                         "unit stride on M")
+    if dS is not None and (dS.shape != (B, H, M, M)
+                           or dS.dtype != torch.float32
+                           or dS.stride(-1) != 1 or dS.stride(-2) != M):
+        raise ValueError(f"dS must be ({B},{H},{M},{M}) float32 with "
+                         "contiguous states")
+    want = (B * H, nc, MAX_HEAD_SIZE, MAX_HEAD_SIZE)
+    if (states is None) != (T == 1) or states is not None and (
+            tuple(states.shape) != want or not states.is_contiguous()):
+        raise ValueError(f"states: want contiguous float32 {want} for T > 1"
+                         ", None for T == 1")
+    dr, dk, dv = (_heads_view(B, H, T, M, r.dtype, r.device)
+                  for _ in range(3))
+    dlogw = _heads_view(B, H, T, M, torch.float32, r.device)
+    du = torch.empty((H, M), dtype=torch.float32, device=r.device)
+    dS0 = torch.empty((B, H, M, M), dtype=torch.float32, device=r.device) \
+        if S0 is not None else None
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dsend = torch.empty(want, **f32)
+    dec = torch.empty((B * H, nc, MAX_HEAD_SIZE), **f32)
+    du_part = torch.empty((B * H, nc, MAX_HEAD_SIZE), **f32)
+
+    def bh(t):
+        return (0, 0) if t is None else (t.stride(0), t.stride(1))
+    strides = (ctypes.c_longlong * 33)(
+        *(t.stride(i) for t in (r, k, v, logw, do, dr, dk, dv, dlogw)
+          for i in range(3)), *bh(dS), *bh(S0), *bh(dS0))
+    fn = _bwd_kernel()
+    with torch.cuda.device(r.device):
+        rc = fn(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                logw.data_ptr(), u.data_ptr(), _ptr(S0), _ptr(states),
+                do.data_ptr(), _ptr(dS), dr.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), _ptr(dS0),
+                dsend.data_ptr(), dec.data_ptr(), du_part.data_ptr(), B, H,
+                T, M, strides, _stream(r))
+    if rc != 0:
+        raise RuntimeError(f"rwkv_scan backward launch failed: "
+                           f"cudaError_t {rc}")
+    bwd_launches += 1
+    return dr, dk, dv, dlogw, du, dS0
+
+
+class RWKVScan(torch.autograd.Function):
+    """K4 with its backward kernel: the forward launches K4 and keeps its
+    inputs and the chunk-start states of its scratch (B*H*chunks*64*64
+    float32, so the backward recomputes nothing); the backward launches
+    ``csrc/rwkv_scan_bwd.cu``.  A missing gradient of o is zeros; a
+    gradient without a unit last stride is made contiguous first."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, S0):
+        ctx.set_materialize_grads(False)      # an unused S passes None
+        o, S, states = forward(r, k, v, logw, u, S0)
+        ctx.save_for_backward(r, k, v, logw, u, S0, states)
+        return o, S
+
+    @staticmethod
+    def backward(ctx, do, dS):
+        r, k, v, logw, u, S0, states = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        if dS is not None and not dS.is_contiguous():
+            dS = dS.contiguous()
+        return backward(r, k, v, logw, u, S0, states, do, dS)
+
+
+def rwkv_scan(r, k, v, logw, u, S0=None):
+    """r,k,v: (B,H,T,M) float32 or bf16; logw: (B,H,T,M) float32 (<= 0);
+    u: (H,M) float32; S0: (B,H,M,M) float32 or None (zeros) -> (o
+    (B,H,T,M) float32, a view of a (B,T,H,M) buffer; S (B,H,M,M)
+    float32).  Every input is read through its strides.  Under grad mode
+    with an input that requires grad, the results carry K4's backward
+    kernel (``RWKVScan``)."""
+    check(r, k, v, logw, u, S0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, S0)):
+        return RWKVScan.apply(r, k, v, logw, u, S0)
+    return forward(r, k, v, logw, u, S0)[:2]

@@ -3,26 +3,40 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         [--full] [--layers N] [--device cuda] [--steps 30] [--batch 8] \\
-        [--seq 256] [--microbatches 1] [--ckpt-dir DIR] [--ckpt-every 10] \\
-        [--fail-at N]   (inject a failure: restore from the epoch backup) \
+        [--seq 256] [--microbatches 1] [--optimizer adamw|adafactor] \\
+        [--lr 3e-3] [--chunked-ce N] [--ckpt-dir DIR] [--ckpt-every 10] \\
+        [--no-backup]   (no epoch backup: a full copy of the train state) \\
+        [--fail-at N]   (inject a failure: restore from the epoch backup) \\
         [--profile N]   (trace N steps after the first with torch.profiler)
 
 Runs the real loop: synthetic data -> ownership-wrapped train state ->
 step (in-place update, color bump per epoch) -> epoch-batched
 checkpointing -> optional failure injection and recovery.  Without
 ``--full`` it trains the reduced ``smoke()`` config; ``--layers N`` cuts
-the depth at the same widths.  Weights are random, from a seeded
-``torch.Generator``.  ``--device`` defaults to ``cuda`` and raises without
-a card; on the card attention and its gradient run in K2's kernels (an
-architecture whose forward reaches another kernel raises: those have no
-backward yet).
+the depth at the same widths; ``--chunked-ce N`` computes the head and the
+loss in N sequence chunks, each recomputed in the backward (a 256000-word
+vocabulary's float32 logits at B=8, T=1024 are 8.4 GB).  Weights are
+random, from a seeded ``torch.Generator``.  ``--device`` defaults to ``cuda`` and raises without
+a card; on the card every family trains through the kernels and their
+backward kernels (K2 attention, K3 experts, K4 RWKV6, K5 RG-LRU).  At full
+size on one 80 GB card, recurrentgemma-9b and the MoE configs (cut with
+``--layers``) need ``--optimizer adafactor``: AdamW's float32 moments do
+not fit beside their parameters and gradients, and every full-size model
+but qwen3-0.6b needs ``--no-backup``: the epoch backup is a copy of the
+parameters and the optimizer state, refreshed each step.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+
+# a full-size step frees and allocates leaf-sized float32 temporaries (the
+# optimizer's) beside the parameters and gradients: without expandable
+# segments the cache fragments and the MoE's 9 GB temporaries do not fit
+ALLOC_CONF = "expandable_segments:True"
 
 
 def main(argv=None):
@@ -40,11 +54,20 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--fail-at", type=int, default=0)
+    ap.add_argument("--no-backup", dest="backup", action="store_false",
+                    help="keep no epoch backup of the train state")
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=("adamw", "adafactor"))
+    ap.add_argument("--chunked-ce", type=int, default=0, metavar="N",
+                    help="the head and the loss in N sequence chunks")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace N steps after the first with torch.profiler")
     args = ap.parse_args(argv)
+    if args.fail_at and not args.backup:
+        ap.error("--fail-at restores from the epoch backup: drop --no-backup")
 
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     import torch
 
     from repro_torch import configs
@@ -61,16 +84,20 @@ def main(argv=None):
         print(f"arch={cfg.name} reduced n_layers {cfg.n_layers} -> "
               f"{args.layers}")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.chunked_ce:
+        cfg = dataclasses.replace(cfg, chunked_ce=args.chunked_ce)
     dev = resolve_device(args.device)
     gen = torch.Generator(dev if dev.type == "cuda" else "cpu")
     params = init_params(cfg, gen.manual_seed(0), device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"arch={cfg.name} params={n_params/1e6:.2f}M "
-          f"batch={args.batch}x{args.seq}")
+          f"batch={args.batch}x{args.seq} optimizer={args.optimizer}")
 
-    opt = OptConfig(lr=args.lr, warmup=5, decay_steps=args.steps * 2)
+    opt = OptConfig(name=args.optimizer, lr=args.lr, warmup=5,
+                    decay_steps=args.steps * 2)
     ts = TrainState(cfg, opt, params, microbatches=args.microbatches)
-    ts.replicate()                                # §4.2.3 backup slot
+    if args.backup:
+        ts.replicate()                            # §4.2.3 backup slot
     mgr = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, ts.state,
@@ -102,6 +129,9 @@ def main(argv=None):
 
     print(f"first loss {losses[0]:.4f} -> last {losses[-1]:.4f} "
           f"({'improved' if losses[-1] < losses[0] else 'NO IMPROVEMENT'})")
+    if dev.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     if mgr and mgr.latest():
         print(f"checkpoints: {len(mgr.saved)}, latest color {mgr.latest()[0]}")
     return losses

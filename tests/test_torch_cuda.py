@@ -215,25 +215,213 @@ def test_cuda_pixtral_width_kernel_path_matches_plain_path(cuda, dtype):
         assert ops.launch_counts()["decode_attention"] == 3 * cfg.n_layers
 
 
+# smoke configs whose forward reaches K3, K4 or K5, the depth, and the
+# launches of one loss_fn gradient under remat (each scanned layer's forward
+# twice, the unrolled tail once)
+GRAD_FAMILIES = [
+    ("rwkv6_3b", 2, {"rwkv_scan": 4, "rwkv_scan_bwd": 2}),
+    ("recurrentgemma_9b", 5, {"rglru_scan": 6, "rglru_scan_bwd": 4,
+                              "flash_attention": 2,
+                              "flash_attention_bwd": 1}),
+    ("qwen3_moe_235b", 2, {"moe_gmm": 12, "moe_gmm_bwd": 6,
+                           "flash_attention": 4, "flash_attention_bwd": 2})]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,kernel", [("rwkv6_3b", "rwkv_scan"),
-                                         ("recurrentgemma_9b", "rglru_scan"),
-                                         ("qwen3_moe_235b", "moe_gmm")])
-def test_cuda_forward_refuses_parameters_that_need_grad(cuda, arch, kernel):
-    """K3, K4 and K5 have no backward yet: a CUDA forward whose parameters
-    require grad raises at the first of them, where the graph would
-    otherwise stop there; under ``torch.no_grad()`` the same forward
-    runs."""
-    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+@pytest.mark.parametrize("arch,n_layers,launches", GRAD_FAMILIES)
+def test_cuda_gradients_kernel_path_match_plain_path(cuda, arch, n_layers,
+                                                     launches):
+    """Smoke rwkv6 / recurrentgemma (a scanned block of 3 under remat and
+    an unrolled tail of 2) / qwen3-moe in float32: ``loss_fn`` gradients
+    through K4, K5 + K2 or K3 + K2 and their backward kernels against the
+    same model with ``attn_impl="plain"`` on the card, every leaf by
+    relative L2 at 2e-3, with the launches of each kernel counted."""
+    from repro_torch.core.torchstate import tree_leaves
+    from repro_torch.models import loss_fn
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                              n_layers=n_layers)
+    plain = dataclasses.replace(cfg, attn_impl="plain")
     params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
                          device=cuda)
-    toks = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
-    params["embed"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
-        forward(cfg, params, {"tokens": toks})
+    g = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 101), generator=g, device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(loss_fn(cfg, params, batch), leaves)
+    counts = ops.launch_counts()
+    assert counts == {k: launches.get(k, 0) for k in counts}
+    want = torch.autograd.grad(loss_fn(plain, params, batch), leaves)
+    for a, b in zip(got, want):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_refuses_inputs_that_need_grad(cuda):
+    """K1 is decode only and has no backward: on the card, with grad mode
+    on, a query that requires grad raises instead of dropping its gradient;
+    under ``torch.no_grad()`` the same call runs."""
+    g = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((2, 8, 64), generator=g, device=cuda).requires_grad_(True)
+    k, v = (torch.randn((2, 2, 40, 64), generator=g, device=cuda)
+            for _ in range(2))
+    lens = torch.tensor([40, 17], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention: .*no backward"):
+        ops.decode_attention(q, k, v, lens)
     with torch.no_grad():
-        logits, _ = forward(cfg, params, {"tokens": toks})
-    assert torch.isfinite(logits).all()
+        out = ops.decode_attention(q, k, v, lens)
+    torch.testing.assert_close(out, ref.decode_attention(q.detach(), k, v,
+                                                         lens),
+                               rtol=0, atol=TOLS["float32"])
+
+
+def _scaled_close(got, want, tol):
+    """Each gradient within ``tol`` of its largest entry, shape and dtype
+    as the plain version's."""
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,a_val,strided", [
+    (1, 4096, 4096, None, False), (3, 600, 4099, None, True),
+    (2, 1, 33, None, False), (2, 15, 40, None, True),     # the short form
+    (2, 16, 40, None, True), (1, 17, 64, None, False),
+    (1, 257, 64, None, False), (1, 4097, 64, None, False),
+    (1, 1000, 32, 1e-4, False), (1, 1000, 32, 0.999, False)])
+def test_cuda_rglru_scan_backward_matches_plain(cuda, B, T, D, a_val,
+                                                strided):
+    """K5's backward against autograd of ``ref.rglru_scan`` and against
+    the plain backward ``ref.rglru_scan_backward``: ragged T and
+    D, B = 3, a and b read through B/T strides and dh through its strides
+    (the gradient of a (T, B, D) buffer seen as (B, T, D)), the short form
+    (T <= 16), strong decay and long memory; each gradient at 1e-4 of its
+    largest entry (float32 sums in another order), with one forward and
+    one backward launch."""
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    if strided:
+        a0 = torch.sigmoid(rand(B, T + 3, D + 5))[:, 1:T + 1, 2:D + 2]
+        b0 = rand(T + 2, B, D + 7).transpose(0, 1)[:, :T, 3:D + 3]
+        dh = rand(T, B, D).transpose(0, 1)
+    else:
+        a0, b0, dh = torch.sigmoid(rand(B, T, D)), rand(B, T, D), \
+            rand(B, T, D)
+    if a_val is not None:
+        a0 = torch.full_like(a0, a_val)
+    a, b = (t.detach().requires_grad_(True) for t in (a0, b0))
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.rglru_scan(a, b), (a, b), dh)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["rglru_scan"], counts["rglru_scan_bwd"]) == (1, 1)
+    want = torch.autograd.grad(ref.rglru_scan(a, b), (a, b), dh)
+    _scaled_close(got, want, 1e-4)
+    with torch.no_grad():
+        _scaled_close(got, ref.rglru_scan_backward(a, ref.rglru_scan(a, b),
+                                                   dh), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [None, "partial", "zero"])
+@pytest.mark.parametrize("E,C,D,F,strided", [
+    (8, 640, 520, 260, False), (3, 1, 64, 8, False), (6, 37, 1000, 200, True),
+    (4, 130, 520, 259, True), (5, 13, 300, 129, False)])
+def test_cuda_moe_gmm_backward_matches_plain(cuda, dtype, rows, E, C, D, F,
+                                             strided):
+    """K3's backward against autograd of ``ref.moe_gmm`` and against the
+    plain backward ``ref.moe_gmm_backward``: C = 1, 13, 37,
+    130 and the training capacity of 640, ragged D and F, x read through a
+    row stride and w as one layer's view of a stacked leaf, live rows
+    None, partial (0, 1, C - 1, C, ...) and none; dx must be exact zeros
+    past each expert's rows and dw zeros for an expert without one.  Each
+    gradient at 2e-3 (float32) or 2e-2 (bf16) of its largest entry: the
+    same float32 sums in another order, rounded once to bf16."""
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x0 = torch.randn((E, C, D + 8 if strided else D), generator=g,
+                     device=cuda).to(dt)[..., :D]
+    w0 = torch.randn((2, E, D, F), generator=g, device=cuda).to(dt)[1]
+    dy = torch.randn((E, C, F), generator=g, device=cuda).to(dt)
+    n = {None: None, "zero": [0] * E,
+         "partial": [(0, 1, C - 1, C, C // 2, 3, C // 3, 2)[e % 8]
+                     for e in range(E)]}[rows]
+    r = None if n is None else torch.tensor(n, dtype=torch.int32,
+                                            device=cuda)
+    x, w = (t.detach().requires_grad_(True) for t in (x0, w0))
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.moe_gmm(x, w, r), (x, w), dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["moe_gmm"], counts["moe_gmm_bwd"]) == (1, 1)
+    if r is not None:
+        live = torch.arange(C, device=cuda)[None, :] < r[:, None]
+        assert not got[0].masked_select(~live[..., None]).any()
+        assert not got[1][r == 0].any()
+    want = torch.autograd.grad(ref.moe_gmm(x, w, r), (x, w), dy)
+    _scaled_close(got, want, TOLS[dtype])
+    _scaled_close(got, ref.moe_gmm_backward(x.detach(), w.detach(), dy, r),
+                  TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,T,M,with_s0,with_dst", [
+    (2, 4, 1024, 64, False, False),     # the training form: no S0, no dS_T
+    (3, 2, 130, 64, True, True), (1, 3, 1, 64, True, True),   # decode
+    (2, 2, 64, 32, True, False), (1, 2, 65, 16, False, True),
+    (2, 5, 1000, 40, True, True)])
+def test_cuda_rwkv_scan_backward_matches_plain(cuda, dtype, B, H, T, M,
+                                               with_s0, with_dst):
+    """K4's backward against autograd of ``ref.rwkv_scan`` and against the
+    plain backward ``ref.rwkv_scan_backward``: r, k and v as
+    the model's transposed views, ragged T, heads under 64, B = 3, the
+    decode step (T = 1), an S0 that requires grad and a non-zero gradient
+    of the final state.  Each gradient at 2e-3 (float32) of its largest
+    entry, the chunk form's float32 sums against the plain step-by-step
+    ones (dlogw from sums that cancel against factors up to e^6.7), or
+    2e-2 (bf16): dr, dk and dv are rounded to bf16 on both sides, and a
+    rounding that falls the other way is one bf16 step, up to 2^-7 of the
+    largest entry."""
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    leaves = [rand(B, T, H, M).to(dt).requires_grad_(True) for _ in range(3)]
+    leaves.append((-0.105 * torch.sigmoid(rand(B, T, H, M)))
+                  .requires_grad_(True))
+    leaves.append((rand(H, M) * 0.1).requires_grad_(True))
+    if with_s0:
+        leaves.append((rand(B, H, M, M) * 0.5).requires_grad_(True))
+    views = [t.transpose(1, 2) for t in leaves[:4]] + leaves[4:]
+    if not with_s0:
+        views.append(None)
+    do = rand(B, T, H, M).transpose(1, 2)
+    dS = rand(B, H, M, M) * 0.5 if with_dst else None
+
+    def grads(fn):
+        o, S = fn(*views)
+        outs, cts = ([o, S], [do, dS]) if with_dst else ([o], [do])
+        return torch.autograd.grad(outs, leaves, cts)
+    ops.reset_launch_counts()
+    got = grads(ops.rwkv_scan)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["rwkv_scan"], counts["rwkv_scan_bwd"]) == (1, 1)
+    _scaled_close(got, grads(ref.rwkv_scan), TOLS[dtype])
+    with torch.no_grad():
+        want = ref.rwkv_scan_backward(*views, do, dS)
+    # dr, dk, dv and dlogw of the (B,H,T,M) views are the leaves' transposed
+    want = [t.transpose(1, 2) for t in want[:4]] + [
+        t for t in want[4:] if t is not None]
+    _scaled_close(got, want, TOLS[dtype])
 
 
 # K2's backward: (B, H, Hkv, T, S, hd, causal, window), the cases
@@ -338,23 +526,28 @@ def test_cuda_dense_gradients_kernel_path_match_plain_path(cuda, arch):
 
 
 @pytest.mark.cuda
-def test_cuda_training_steps_match_plain_path(cuda):
-    """Three AdamW steps of smoke qwen3 in float32 through the kernels
-    against the same steps with ``attn_impl="plain"``: the losses agree to
-    1e-4 and the loss falls."""
+@pytest.mark.parametrize("arch,optimizer", [
+    ("qwen3_0_6b", "adamw"), ("rwkv6_3b", "adamw"),
+    ("recurrentgemma_9b", "adafactor"), ("qwen3_moe_235b", "adafactor")])
+def test_cuda_training_steps_match_plain_path(cuda, arch, optimizer):
+    """Three steps of a smoke model in float32 on one batch through the
+    kernels (K2; K4; K5 and K2; K3 and K2, with their backward kernels)
+    against the same steps with ``attn_impl="plain"``, with the optimizer
+    each family trains with on the card: the losses agree to 1e-4 and the
+    loss on the batch falls (over fresh batches, three steps move the loss
+    less than the batches differ)."""
     from repro_torch.train import (OptConfig, TrainState, shard_batch,
                                    synthetic_batches)
-    cfg = dataclasses.replace(configs.smoke("qwen3_0_6b"), dtype="float32")
-    opt = OptConfig(lr=3e-3, warmup=2, decay_steps=20)
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+    opt = OptConfig(name=optimizer, lr=3e-3, warmup=2, decay_steps=20)
     losses = {}
     for impl in ("xla", "plain"):
         c = dataclasses.replace(cfg, attn_impl=impl)
         ts = TrainState(c, opt, init_params(
             c, torch.Generator(cuda).manual_seed(0), device=cuda))
-        data = synthetic_batches(c.vocab, 4, 64)
-        losses[impl] = [float(ts.step(shard_batch(None, next(data),
-                                                  device=cuda))["loss"])
-                        for _ in range(3)]
+        batch = shard_batch(None, next(synthetic_batches(c.vocab, 4, 64)),
+                            device=cuda)
+        losses[impl] = [float(ts.step(batch)["loss"]) for _ in range(3)]
         assert ts.color == 3
     torch.testing.assert_close(losses["xla"], losses["plain"], rtol=1e-4,
                                atol=0)

@@ -169,3 +169,61 @@ def test_sanitizer_runs_on_the_port(monkeypatch):
                                     page_size=4, slots=2, max_len=32),
                  tserve.synth_prompts(6, seed=1), max_new=3)
     assert len(eng.finished) == 6
+
+
+# A schedule of tests/test_prefetch_invariants.py's staleness property
+# (tied=True, qps=1, ooo=False) that reads a stale value: box 1 is a TBox
+# child of box 0.  Thread 2's read of box 0 group-fetches box 1 with it
+# (ownership.py ``_copy_in``) and caches box 1 under its current color, but
+# leaves its owner's U bit set, so the owner's next write keeps the color
+# (``owner_write`` bumps it only ``if not box.u``) and the cached copy is
+# served again.  (thread, op, box) triples.
+TIED_STALE_SCHEDULE = (("write", 0, 1), ("write", 1, 0), ("read", 2, 0),
+                       ("write", 1, 1), ("read", 2, 1))
+
+
+def _run_tied_schedule(core):
+    """Run TIED_STALE_SCHEDULE on ``core.Cluster``; returns each read as
+    (value seen, current version) and the cluster."""
+    cl = core.Cluster(4, backend="drust", qps_per_thread=1, ooo=False)
+    ths = []
+    for i in range(4):
+        th = cl.main_thread(0)
+        th.server = i
+        ths.append(th)
+    boxes = [cl.backend.alloc(ths[0], 256, ("v", 0, 0))]
+    boxes.append(cl.backend.alloc(ths[1], 256, ("v", 1, 0),
+                                  tie_to=boxes[0]))
+    version, reads = [0, 0], []
+    for op, t, i in TIED_STALE_SCHEDULE:
+        if op == "write":
+            version[i] += 1
+            cl.backend.write(ths[t], boxes[i], ("v", i, version[i]))
+        else:
+            reads.append((cl.backend.read(ths[t], boxes[i]), version[i]))
+    return reads, cl
+
+
+def test_tied_child_group_fetch_schedule_matches_jax():
+    """The port reproduces the reference on the stale-read schedule
+    exactly, the stale value included: the same reads, ``NetStats`` and
+    makespan."""
+    got, tcl = _run_tied_schedule(tcore)
+    want, jcl = _run_tied_schedule(jcore)
+    assert got == want
+    assert dataclasses.asdict(tcl.sim.net) == dataclasses.asdict(jcl.sim.net)
+    assert tcl.makespan_us() == jcl.makespan_us()
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "fault of the reference that the port reproduces exactly: _copy_in "
+    "caches a tied child without resetting its owner's U bit, so the "
+    "owner's next write keeps the color and the reader's copy stays "
+    "served (src/repro/core/ownership.py:989-1019 against :562-576)"))
+def test_tied_child_write_after_group_fetch_is_not_stale():
+    """After a group fetch brought the tied child into a reader's cache, the
+    child's owner writes it: the reader's next read must see that write."""
+    reads, _ = _run_tied_schedule(tcore)
+    for (_, i, seen), current in reads:
+        assert seen == current, f"stale read of box {i}: saw version " \
+            f"{seen}, current is {current}"

@@ -502,28 +502,43 @@ def _wrapper_inputs(kernel):
                 kernel]
 
 
-@pytest.mark.parametrize("kernel", ["decode_attention", "moe_gmm",
-                                    "rwkv_scan", "rglru_scan"])
+@pytest.mark.parametrize("kernel", ["decode_attention"])
 def test_kernel_wrappers_refuse_inputs_that_need_grad(kernel):
-    """The kernels without a backward (K3, K4, K5; K1 is decode only): each
-    wrapper's ``check`` raises for an input that requires grad while grad
-    mode is on, before it looks at the device; under ``torch.no_grad()``
-    the same inputs reach the device check as before.  The CPU path
-    (``ops`` -> ``ref``) still differentiates."""
+    """The kernel without a backward (K1, decode only): its wrapper's
+    ``check`` raises for an input that requires grad while grad mode is on,
+    before it looks at the device; under ``torch.no_grad()`` the same
+    inputs reach the device check as before.  The CPU path (``ops`` ->
+    ``ref``) still differentiates."""
     import importlib
     mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
     args = _wrapper_inputs(kernel)
     args[1].requires_grad_(True)
-    extra = ()
     with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
-        mod.check(*args, *extra)
+        mod.check(*args)
     with torch.no_grad():
         with pytest.raises(ValueError, match="CUDA"):
-            mod.check(*args, *extra)
+            mod.check(*args)
     args[1].requires_grad_(False)
     with pytest.raises(ValueError, match="CUDA"):
-        mod.check(*args, *extra)                  # grad mode, no grad input
+        mod.check(*args)                          # grad mode, no grad input
     args[1].requires_grad_(True)
+    out = getattr(ops, kernel)(*args)
+    (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
+     ).sum().backward()
+    assert args[1].grad is not None and args[1].grad.shape == args[1].shape
+
+
+def _check_accepts_grad(kernel, *extra):
+    """``kernel``'s ``check`` takes an input that requires grad under grad
+    mode and fails these CPU tensors on the device only, and ``ops``
+    differentiates them on the CPU."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    args = _wrapper_inputs(kernel)
+    args[1].requires_grad_(True)
+    assert torch.is_grad_enabled()
+    with pytest.raises(ValueError, match="CUDA"):
+        mod.check(*args, *extra)
     out = getattr(ops, kernel)(*args)
     out = out[0] if isinstance(out, tuple) else out
     (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
@@ -535,16 +550,16 @@ def test_flash_attention_check_accepts_inputs_that_need_grad():
     """K2 has a backward kernel: its ``check`` takes an input that
     requires grad under grad mode and fails these CPU tensors on the device
     only, and ``ops.flash_attention`` differentiates them on the CPU."""
-    from repro_torch.kernels import flash_attention as k2
-    args = _wrapper_inputs("flash_attention")
-    args[1].requires_grad_(True)
-    assert torch.is_grad_enabled()
-    with pytest.raises(ValueError, match="CUDA"):
-        k2.check(*args, True)
-    out = ops.flash_attention(*args)
-    (out * torch.linspace(0.5, 1.5, out.numel()).reshape(out.shape)
-     ).sum().backward()
-    assert args[1].grad is not None and args[1].grad.shape == args[1].shape
+    _check_accepts_grad("flash_attention", True)
+
+
+@pytest.mark.parametrize("kernel", ["moe_gmm", "rwkv_scan", "rglru_scan"])
+def test_kernel_wrappers_accept_inputs_that_need_grad(kernel):
+    """K3, K4 and K5 have backward kernels too: each wrapper's ``check``
+    takes an input that requires grad under grad mode and fails these CPU
+    tensors on the device only, and ``ops`` differentiates them on the
+    CPU."""
+    _check_accepts_grad(kernel)
 
 
 def test_flash_attention_wrapper_takes_head_dim_160():
@@ -638,7 +653,8 @@ def test_build_target_hashes_included_headers(tmp_path, monkeypatch):
     users = {n for n in names
              if '#include "mma_sync.cuh"' in (csrc / f"{n}.cu").read_text()}
     assert users == {"decode_attention", "flash_attention",
-                     "flash_attention_bwd", "moe_gmm", "rwkv_scan"}
+                     "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd",
+                     "rwkv_scan", "rwkv_scan_bwd"}
     for n in names:
         assert (_build._target(n) != before[n]) == (n in users), n
 

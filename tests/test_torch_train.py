@@ -273,3 +273,19 @@ def test_train_driver_runs_on_the_cpu(tmp_path, capsys):
     assert "checkpoints: 3, latest color 6" in out
     assert sorted(p.name for p in tmp_path.glob("*.json")) == [
         "ckpt_00000002.json", "ckpt_00000004.json", "ckpt_00000006.json"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b",
+                                  "qwen3-moe-235b-a22b"])
+def test_launch_train_takes_each_family(arch, capsys):
+    """``launch/train.py`` trains the RWKV6, RG-LRU and MoE families (on
+    the card through K4, K5 and K2, K3 and K2 and their backward kernels)
+    with the options their full sizes need on one card: Adafactor, no
+    epoch backup, the loss in sequence chunks."""
+    from repro_torch.launch import train
+    losses = train.main(["--arch", arch, "--device", "cpu", "--steps", "2",
+                         "--batch", "2", "--seq", "16", "--optimizer",
+                         "adafactor", "--no-backup", "--chunked-ce", "2"])
+    out = capsys.readouterr().out
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert "optimizer=adafactor" in out
