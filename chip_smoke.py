@@ -115,6 +115,19 @@ Phases, each printed as one JSON object on its own line:
      expert flips about once in 60,000 decisions in float32 and about once
      in 6 in bf16, where a flip changes that token's output wholesale.
 
+  6. apps     the paper's four DSM applications (``repro_torch.apps``) at
+              their defaults on 4 servers, on drust, gam and grappa, GEMM's
+              tiles and DataFrame's chunks on the card, each held to the
+              same run on the CPU (ops, makespan and every ``NetStats``
+              field exactly, DataFrame's float digest at 1e-9 relative),
+              with its wall seconds; then GEMM at n = 8192 (tiles of 1024,
+              the default's 8 x 8 grid): wall seconds, peak memory, the
+              largest error against one ``torch.matmul`` of A and B, and
+              the device time of its 512 tile products replayed back to
+              back (CUDA events) beside that matmul and the float32 bound;
+              then the port's borrow lint over its own app surface, which
+              must report nothing.  No kernel of this repository runs here.
+
 Then one line ``{"kernels": [...]}`` with one entry per kernel and shape,
 its launches counted on the path that runs it, and, last, ``{"ok": true,
 "device": ...}``.  Any failed check raises, so the script exits non-zero
@@ -316,6 +329,13 @@ def main() -> int:
                 row["launches"] = launches[path][row["name"]]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 6. the DSM applications ----------------------------------------------
+    t0 = time.perf_counter()
+    apps_phase(torch, dev)
+    emit({"phase": "apps_total", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "path", "shape",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1447,6 +1467,139 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
          f"{cfg.name} decode logits disagree with the plain path")
     return {f"{cfg.name} prefill": prefill_counts,
             f"{cfg.name} serve": serve_counts}
+
+
+# ---------------------------------------------------------------------------
+#  the paper's DSM applications, with their payloads on the card
+# ---------------------------------------------------------------------------
+APP_BACKENDS = ("drust", "gam", "grappa")
+APPS_ON_CARD = ("gemm", "dataframe")     # the apps whose payloads are tensors
+# GEMM at a size that gives the card real work: the default's 8 x 8 tile
+# grid (the same simulated run), each tile product 1024^3
+GEMM_N, GEMM_TILE = 8192, 1024
+
+
+def apps_phase(torch, dev) -> None:
+    """Each app at its defaults on 4 servers, on every backend, held to the
+    same run on the CPU (ops, makespan and every ``NetStats`` field
+    exactly; DataFrame's float digest at 1e-9 relative: the card sums each
+    chunk in another order); GEMM at n = 8192 against one ``torch.matmul``
+    of A and B; the port's borrow lint over its own app surface."""
+    import numpy as np
+
+    from repro_torch.analysis import lint_paths
+    from repro_torch.analysis.lint import default_targets
+    from repro_torch.apps import APPS, run_gemm
+
+    for app, fn in APPS.items():
+        for backend in APP_BACKENDS:
+            kw = {"device": "cuda"} if app in APPS_ON_CARD else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = fn(4, backend=backend, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            host = fn(4, backend=backend,
+                      **({"device": "cpu"} if kw else {}))
+            what = f"{app} {backend}"
+            need((card.ops, card.makespan_us, card.net)
+                 == (host.ops, host.makespan_us, host.net),
+                 f"{what}: the run on the card differs from the CPU's")
+            extra, host_extra = dict(card.extra), dict(host.extra)
+            rel = None
+            if app == "dataframe":
+                a, b = extra.pop("result_digest"), host_extra.pop(
+                    "result_digest")
+                rel = abs(a - b) / max(abs(b), 1e-300)
+                need(rel <= 1e-9, f"{what}: digest rel err {rel}")
+            need(extra == host_extra, f"{what}: {extra} != {host_extra}")
+            emit({"phase": "apps", "app": app, "backend": backend,
+                  "servers": 4, "payloads": "cuda" if kw else "host",
+                  "wall_s": wall, "ops": card.ops,
+                  "makespan_us": card.makespan_us,
+                  "round_trips": card.net["round_trips"],
+                  "bytes_moved": card.net["bytes_moved"],
+                  "digest_rel_err": rel})
+
+    # GEMM at n = 8192: wall, peak memory, the error against the oracle
+    n, tile = GEMM_N, GEMM_TILE
+    nt = n // tile
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = torch.empty((n, n), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = run_gemm(4, "drust", n=n, tile=tile, device="cuda", out=out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(r.ops == nt ** 3, f"gemm n={n}: {r.ops} tile products")
+    rng = np.random.default_rng(0)                # run_gemm's draws
+    A = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dev)
+    B = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)).to(dev)
+    oracle = A @ B
+    err = _err(out, oracle)
+    need(bool(torch.isfinite(out).all()), f"gemm n={n}: non-finite product")
+    need(bool(((out - oracle).abs() <= 5e-2 + 2e-3 * oracle.abs()).all()),
+         f"gemm n={n}: max abs err {err} against torch.matmul")
+    del out, oracle
+
+    # device time of the run's tile products and accumulations, replayed
+    # back to back from the same tiles (CUDA events), beside one
+    # torch.matmul of A and B and the float32 bound.  A device sleep of
+    # about 0.1 s runs ahead of the start event, so the host has enqueued
+    # the replay's 1,088 launches before the card reaches them and the
+    # events span the card's work, not the host's; the host's enqueue time
+    # is printed beside it.
+    At = A.view(nt, tile, nt, tile).permute(0, 2, 1, 3).contiguous()
+    Bt = B.view(nt, tile, nt, tile).permute(0, 2, 1, 3).contiguous()
+
+    def products():
+        for i in range(nt):
+            for j in range(nt):
+                acc = torch.zeros((tile, tile), dtype=torch.float32,
+                                  device=dev)
+                for k in range(nt):
+                    acc += At[i, k] @ Bt[k, j]
+
+    def events_ms(fn, reps=3):
+        fn()
+        times, host = [], []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), statistics.median(host)
+
+    tiles_ms, tiles_host_ms = events_ms(products)
+    matmul_ms, _ = events_ms(lambda: A @ B)
+    bound_ms = 2.0 * n ** 3 / PEAK_FLOPS["float32"] * 1e3
+    emit({"phase": "apps_gemm", "app": "gemm", "backend": "drust",
+          "servers": 4, "n": n, "tile": tile, "tile_products": r.ops,
+          "wall_s": wall, "makespan_us": r.makespan_us,
+          "round_trips": r.net["round_trips"],
+          "tile_products_ms": tiles_ms,
+          "tile_products_host_ms": tiles_host_ms, "matmul_ms": matmul_ms,
+          "bound_ms": bound_ms, "bound_by": "operations (float32)",
+          "max_abs_err": err, "peak_gb": peak / 1e9,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    del A, B, At, Bt
+
+    # the port's borrow lint over its own app surface
+    targets = default_targets()
+    violations = lint_paths(targets)
+    need(violations == [], "lint: " + "; ".join(v.format()
+                                                for v in violations))
+    emit({"phase": "apps_lint", "targets": len(targets), "violations": 0})
 
 
 def _cast_tree(tree, like) -> None:

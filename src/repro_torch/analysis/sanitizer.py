@@ -32,8 +32,7 @@ posts no verbs, and never mutates protocol state — a sanitized run's
 counters and digests are byte-identical to the same run without it.
 
 The recorded event trace doubles as the input to the coherence race
-certifier (``analysis/races.py`` of the JAX package; not yet carried
-over to this package).
+certifier (:mod:`repro_torch.analysis.races`).
 """
 
 from __future__ import annotations

@@ -72,6 +72,8 @@ from __future__ import annotations
 import copy as _copy
 from typing import Any, Callable
 
+import torch as _torch
+
 from . import addr as A
 from .cache import LocalCache
 from .heap import GlobalHeap, Obj
@@ -90,10 +92,13 @@ _SCALARS = (bytes, int, float, str, bool, complex, type(None))
 
 def _clone(data: Any) -> Any:
     """Payload snapshot.  Scalars pass through; flat lists/tuples/dicts of
-    scalars and numpy arrays take a shallow-copy fast path (no memo dict, no
-    recursion); everything else falls back to ``deepcopy``."""
+    scalars, numpy arrays and tensors (cloned on their own device) take a
+    shallow-copy fast path (no memo dict, no recursion); everything else
+    falls back to ``deepcopy``."""
     if isinstance(data, _SCALARS):
         return data
+    if isinstance(data, _torch.Tensor):
+        return data.clone()
     if _np is not None and isinstance(data, _np.ndarray):
         return data.copy()
     if isinstance(data, list):

@@ -733,3 +733,42 @@ def test_cuda_moe_model_kernel_path_matches_plain_path(cuda, arch):
         torch.testing.assert_close(lk, lp, rtol=TOLS["float32"],
                                    atol=TOLS["float32"])
     assert ops.launch_counts()["moe_gmm"] == 3 * cfg.n_layers * 5
+
+
+# --------------------------------------------------------------------------
+#  The DSM applications with their payloads on the card
+# --------------------------------------------------------------------------
+def _same_run(a, b):
+    return (a.ops, a.makespan_us, a.net) == (b.ops, b.makespan_us, b.net)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["drust", "gam", "grappa"])
+def test_cuda_gemm_and_dataframe_equal_their_cpu_runs(cuda, backend):
+    from repro_torch.apps import run_dataframe, run_gemm
+    for kw in (dict(n=256, tile=64), dict(n=256, tile=64, prefetch=True)):
+        assert _same_run(run_gemm(4, backend, device="cuda", **kw),
+                         run_gemm(4, backend, device="cpu", **kw))
+    for kw in ({}, dict(use_tbox=True, use_spawn_to=True),
+               dict(ooo=True, qps_per_thread=2)):
+        card = run_dataframe(4, backend, device="cuda", **kw)
+        host = run_dataframe(4, backend, device="cpu", **kw)
+        assert _same_run(card, host)
+        assert card.extra["result_digest"] == pytest.approx(
+            host.extra["result_digest"], rel=1e-9, abs=0)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_default_device_puts_its_tiles_on_the_card(cuda,
+                                                             monkeypatch):
+    import repro_torch.apps.gemm as gemm
+    clusters = []
+    make = gemm.make_cluster
+    monkeypatch.setattr(gemm, "make_cluster",
+                        lambda *a, **k: clusters.append(make(*a, **k))
+                        or clusters[-1])
+    gemm.run_gemm(2, n=256, tile=64)
+    tiles = [o.data for p in clusters[0].heap.partitions
+             for o in p.objects.values() if isinstance(o.data, torch.Tensor)]
+    assert len(tiles) >= 2 * 4 * 4
+    assert {t.device.type for t in tiles} == {"cuda"}

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
 loads neither ``jax`` nor anything of the JAX package ``repro``, and no
-source file of the port or ``chip_smoke.py`` imports them."""
+source file of the port, ``chip_smoke.py`` or the port's examples
+(``examples/torch_*.py``) imports them."""
 
 import ast
 import json
@@ -65,3 +66,15 @@ def test_no_source_imports_jax_or_repro():
     bad = {str(f.relative_to(ROOT)): name for f in files
            for name in _imports(f) if _forbidden(name)}
     assert bad == {}
+
+
+def test_port_examples_import_no_jax_or_repro():
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in files] == [
+        "torch_dsm_apps.py", "torch_quickstart.py", "torch_serve_kv.py",
+        "torch_train_lm.py"]
+    bad = {f.name: name for f in files for name in _imports(f)
+           if _forbidden(name)}
+    assert bad == {}
+    assert all(any(n.startswith("repro_torch") for n in _imports(f))
+               for f in files)
