@@ -67,10 +67,11 @@ Phases, each printed as one JSON object on its own line:
               qwen3-moe-235b-a22b at 3 of 94 layers: K3 18 / 9 and K2 6 /
               3, Adafactor) and
               each backward's CUDA launches in the traced step; ms per
-              step, peak memory and each kernel's share of one traced
-              step; then, for qwen3-0.6b, the epoch color, the backup's
-              promotion and a ``checkpoint`` round trip of the trained
-              parameters (exact, and int8 within half a step).
+              step, peak memory, each kernel's share of one traced step
+              and PyTorch's bf16 / float32 fills and adds in it
+              (``fill_add``); then, for qwen3-0.6b, the epoch color, the
+              backup's promotion and a ``checkpoint`` round trip of the
+              trained parameters (exact, and int8 within half a step).
   5. five models at their published widths, in bf16, random weights from
      a seeded ``torch.Generator``, one after the other (each freed before
      the next):
@@ -127,6 +128,15 @@ Phases, each printed as one JSON object on its own line:
               back (CUDA events) beside that matmul and the float32 bound;
               then the port's borrow lint over its own app surface, which
               must report nothing.  No kernel of this repository runs here.
+  7. protocol ``repro_torch.benchmarks.run.quick(device="cuda")``, the
+              paper's protocol evaluation, held to the committed
+              ``BENCH_protocol.json`` in every field of its eleven sections
+              but the wall-clock ones (one line per section: fields
+              compared, mismatches, wall seconds); then the live elastic
+              rescale (``repro_torch.launch.elastic``'s
+              ``run_protocol(4)``: crash, fail-over, grow), its report
+              line and fail-over report held to the JAX package's.  No
+              kernel runs here.
 
 Then one line ``{"kernels": [...]}`` with one entry per kernel and shape,
 its launches counted on the path that runs it, and, last, ``{"ok": true,
@@ -336,6 +346,11 @@ def main() -> int:
     emit({"phase": "apps_total", "seconds": time.perf_counter() - t0})
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 7. the protocol evaluation and the elastic rescale --------------------
+    t0 = time.perf_counter()
+    protocol_phase(dev)
+    emit({"phase": "protocol_total", "seconds": time.perf_counter() - t0})
 
     keys = ("name", "route", "source", "replaces", "path", "shape",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1211,6 +1226,18 @@ def train_phase(torch, dev, case) -> dict:
             shares[kernel] = shares.get(kernel, 0.0) + t / dev_us
             cuda_launches[kernel] = cuda_launches.get(kernel, 0) + c
     ms_steps = [t for i, t in times if i >= 3]
+    # PyTorch's fills and adds by dtype: [device ms, launches] in the
+    # traced step (the stacked layer leaves' gradients were written with
+    # them, once per layer, before the forward took its layers with
+    # torch.unbind)
+    fill_add = {}
+    for group, pat in (("bf16 fill", "FillFunctor<c10::BFloat16>"),
+                       ("float32 fill", "FillFunctor<float>"),
+                       ("bf16 add", "CUDAFunctor_add<c10::BFloat16>"),
+                       ("float32 add", "CUDAFunctor_add<float>")):
+        hits = [(t, c) for k, t, c in kernels if pat in k]
+        fill_add[group] = [sum(t for t, _ in hits) / 1e3,
+                           sum(c for _, c in hits)]
     emit({"phase": "train", "arch": cfg.name, "layers": L,
           "reduced": reduced, "dtype": cfg.dtype, "B": case["B"],
           "T": case["T"], "remat": cfg.remat,
@@ -1227,6 +1254,7 @@ def train_phase(torch, dev, case) -> dict:
           "kernel_shares": shares, "kernel_cuda_launches": cuda_launches,
           "top_kernels": [(k[:80], t / 1e3, c) for k, t, c in
                           sorted(kernels, key=lambda x: -x[1])[:8]],
+          "fill_add": fill_add,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     need(all(np.isfinite(losses)), f"non-finite losses {losses}")
     need(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -1600,6 +1628,51 @@ def apps_phase(torch, dev) -> None:
     need(violations == [], "lint: " + "; ".join(v.format()
                                                 for v in violations))
     emit({"phase": "apps_lint", "targets": len(targets), "violations": 0})
+
+
+# ``repro.launch.elastic.run_protocol(4)`` on the JAX package: its report
+# line, and the fail-over report's fields, which the port must reproduce
+ELASTIC_LINE = ("elastic protocol rescale 4->3->4: OK (rehomed 8, orphans 0, "
+                "makespan 9.7us)")
+ELASTIC_REPORT = {"server": 3, "rehomed_boxes": 8, "orphaned_cids": 0,
+                  "lost_writes": 1, "restored_bytes": 2048,
+                  "makespan_us": 9.689600000000041}
+
+
+def protocol_phase(dev) -> None:
+    """``repro_torch.benchmarks.run.quick`` with its tensors on ``dev``,
+    held to the committed ``BENCH_protocol.json`` in every field but the
+    wall-clock ones (one line per section: fields, mismatches, wall
+    seconds), then the live elastic rescale, held to the reference's
+    report."""
+    from repro_torch.benchmarks import run
+    from repro_torch.launch import elastic
+
+    base = json.loads((ROOT / "BENCH_protocol.json").read_text())
+    seconds: dict = {}
+    summary = run.quick(device=dev, seconds=seconds)
+    diff = run.diff_sections(summary, base)
+    for section, (n, bad) in diff.items():
+        emit({"phase": "protocol", "section": section, "fields": n,
+              "mismatches": len(bad), "first_mismatches": bad[:5],
+              "seconds": seconds.get(section)})
+    need(len(diff) == 11, f"sections {sorted(diff)}")
+    bad = [b for _, (_, bs) in diff.items() for b in bs]
+    need(not bad, f"quick() differs from BENCH_protocol.json in {len(bad)} "
+                  f"fields: {bad[:10]}")
+
+    t0 = time.perf_counter()
+    ok, cl, rep = elastic.rescale(4)         # run_protocol(4)'s rescale
+    wall = time.perf_counter() - t0
+    line = elastic.report_line(4, ok, rep)
+    print(line, flush=True)
+    report = {k: getattr(rep, k) for k in ELASTIC_REPORT}
+    emit({"phase": "elastic", "servers": "4->3->4", "ok": ok,
+          "report": report, "round_trips": cl.sim.net.round_trips,
+          "bytes_moved": cl.sim.net.bytes_moved, "wall_s": wall})
+    need(ok, "the elastic rescale failed its own checks")
+    need(line == ELASTIC_LINE, f"elastic line {line!r} != {ELASTIC_LINE!r}")
+    need(report == ELASTIC_REPORT, f"elastic report {report}")
 
 
 def _cast_tree(tree, like) -> None:

@@ -13,9 +13,10 @@ With ``cfg.scan_layers`` the layer leaves stay **stacked** as the
 reference's ``vmap``-ed init leaves them: ``params["layers"]`` is one dict
 of ``(n_steps, ...)`` leaves, or for a hybrid a list of ``attn_every`` such
 dicts (one per position in the block), and the forward loops over views
-``p[i]`` where the reference scans.  ``params["tail"]`` is a list of
-per-layer dicts.  This keeps the int8 weight refresh identical:
-``quantize_tree`` gives one scale per leaf.
+``p[i]`` where the reference scans (``torch.unbind`` in the forward, so
+the backward writes each stacked leaf's gradient once).
+``params["tail"]`` is a list of per-layer dicts.  This keeps the int8
+weight refresh identical: ``quantize_tree`` gives one scale per leaf.
 
 Caches, stacked the same way, plus one scalar ``length`` (a Python int)
 shared by every slot:
@@ -61,6 +62,20 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _unbind(tree) -> list:
+    """Every layer of a stacked tree, with one ``torch.unbind`` per leaf.
+    Its backward writes each leaf's layer gradients into the stack once,
+    where ``_index`` per layer costs one zeroed full-stack tensor and one
+    full-stack add per layer.  Views that take in-place writes (the decode
+    cache) must come from ``_index``: autograd refuses in-place writes to
+    an unbind's outputs."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _layer_plan(cfg: ModelConfig):
     """(n_scanned, tail_indices): homogeneous stacks scan everything;
     hybrids scan whole blocks of ``attn_every`` and unroll the rest."""
@@ -70,14 +85,20 @@ def _layer_plan(cfg: ModelConfig):
     return cfg.n_layers, []
 
 
-def _scanned(cfg: ModelConfig, tree) -> list:
+def _scanned(cfg: ModelConfig, tree, *, unbind: bool = False) -> list:
     """The scanned layers of a params or cache tree, in execution order:
-    views of the stacked leaves (the list itself when not scan_layers)."""
+    views of the stacked leaves (the list itself when not scan_layers),
+    taken with ``_unbind`` when ``unbind`` and with ``_index`` otherwise."""
     if not cfg.scan_layers:
         return list(tree)
     period = cfg.attn_every or 1
     groups = [tree] if period == 1 else tree
     n_steps = _layer_plan(cfg)[0] // period
+    if not n_steps:
+        return []
+    if unbind:
+        steps = [_unbind(g) for g in groups]
+        return [steps[j][s] for s in range(n_steps) for j in range(period)]
     return [_index(groups[j], s) for s in range(n_steps)
             for j in range(period)]
 
@@ -296,7 +317,7 @@ def forward_hidden(cfg: ModelConfig, params, batch):
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
-    for p_layer in _scanned(cfg, params["layers"]):
+    for p_layer in _scanned(cfg, params["layers"], unbind=True):
         if remat:
             x, aux = checkpoint(_block, cfg, p_layer, x, positions, None,
                                 None, use_reentrant=False)

@@ -4,11 +4,13 @@ each of its modes gives the reference's ops, makespan, ``NetStats`` and
 digests (DataFrame's float digest within 1e-12: torch and numpy sum
 float64 in different orders); the ``apps``, ``prefetch``,
 ``placement_sweep`` and ``lock_sweep`` sections of ``BENCH_protocol.json``
-are reproduced exactly by port-side copies of their runners; and the
+are reproduced exactly by the port's runners (``repro_torch.benchmarks``)
+and equal the reference's runners' rows; and the
 reference's app-level assertions (``tests/test_apps.py``) hold for the
 port.  Everything runs on virtual clocks, so equality is exact."""
 
 import dataclasses
+import functools
 import json
 import pathlib
 
@@ -18,10 +20,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.apps as japps                                   # noqa: E402
-import repro.core as jcore                                   # noqa: E402
+
+from benchmarks import protocol_micro as jpm                 # noqa: E402
+from benchmarks import run as jrun                           # noqa: E402
 
 import repro_torch.apps as tapps                             # noqa: E402
 import repro_torch.core as tcore                             # noqa: E402
+from repro_torch.benchmarks import protocol_micro as tpm     # noqa: E402
+from repro_torch.benchmarks import run as trun               # noqa: E402
 from repro_torch.core.ownership import _clone                # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -163,182 +169,89 @@ def test_clone_keeps_device_and_dtype_and_copies():
 
 
 # --------------------------------------------------------------------------
-#  BENCH_protocol.json, reproduced by port-side runs
+#  BENCH_protocol.json, reproduced by the port's runners
+#  (repro_torch.benchmarks), each held to the committed file and to the
+#  reference's runners (benchmarks/run.py, benchmarks/protocol_micro.py)
 # --------------------------------------------------------------------------
-def _app_stats(r) -> dict:
-    """``benchmarks/run.py::_app_stats``."""
-    keys = ("round_trips", "bytes_moved", "doorbell_batches",
-            "batched_verbs", "async_writebacks", "fences", "fenced_verbs",
-            "ooo_completions", "qp_switches", "speculative_fetches",
-            "late_fences", "wasted_prefetches")
-    return {"makespan_us": round(r.makespan_us, 2),
-            **{k: r.net[k] for k in keys}}
+# benchmarks/run.py::quick's "apps" runs (benchmarks/run.py:83-94)
+REF_APPS = {
+    "socialnet": dict(n_requests=120),
+    "dataframe": dict(n_columns=4, chunks_per_column=8, n_ops=4,
+                      use_tbox=True),
+}
+REF_APP_MODES = (("batched", dict(batch_io=True, coalesce="manual")),
+                 ("unbatched", dict(batch_io=False, coalesce="manual")),
+                 ("auto", dict(batch_io=True, coalesce="auto")))
 
 
-# benchmarks/run.py::quick, the "apps" section
-BENCH_APPS = {"socialnet": dict(n_requests=120),
-              "dataframe": dict(n_columns=4, chunks_per_column=8, n_ops=4,
-                                use_tbox=True)}
-BENCH_APP_MODES = (("batched", dict(batch_io=True, coalesce="manual")),
-                   ("unbatched", dict(batch_io=False, coalesce="manual")),
-                   ("auto", dict(batch_io=True, coalesce="auto")))
-
-
-def _apps_entry(apps, app):
-    entry = {mode: _app_stats(_run(apps, app, 4, "drust", **mkw,
-                                   **BENCH_APPS[app]))
-             for mode, mkw in BENCH_APP_MODES}
+def _ref_apps_entry(app):
+    """``benchmarks/run.py::quick``'s ``apps`` row of ``app``."""
+    entry = {mode: jrun._app_stats(japps.APPS[app](4, "drust", **mkw,
+                                                   **REF_APPS[app]))
+             for mode, mkw in REF_APP_MODES}
     entry["rtt_ratio"] = round(entry["unbatched"]["round_trips"]
                                / max(1, entry["batched"]["round_trips"]), 2)
     return entry
 
 
-@pytest.mark.parametrize("app", sorted(BENCH_APPS))
+@pytest.mark.parametrize("app", ["dataframe", "socialnet"])
 def test_bench_apps_rows_reproduced_exactly(app):
-    mine = _apps_entry(tapps, app)
+    mine = trun.apps_entry(app, device="cpu")
     assert mine == BENCH["apps"][app]
-    assert mine == _apps_entry(japps, app)
+    assert mine == _ref_apps_entry(app)
 
 
-# benchmarks/run.py::quick, the "prefetch" section
-BENCH_PREFETCH = {
+# benchmarks/run.py::quick's "prefetch" runs
+REF_PREFETCH = {
     "gemm_prefetch": ("gemm", dict(n=256, tile=64, prefetch=True)),
     "kvstore_window8": ("kvstore", dict(n_keys=256, n_ops=600,
                                         prefetch_window=8)),
 }
 
 
-def _prefetch_row(apps, name):
-    app, kw = BENCH_PREFETCH[name]
-    r = _run(apps, app, 4, "drust", **kw)
+def _ref_prefetch_row(name):
+    app, kw = REF_PREFETCH[name]
+    r = japps.APPS[app](4, "drust", **kw)
     return {"makespan_us": round(r.makespan_us, 2),
             **{k: r.net[k] for k in ("round_trips", "speculative_fetches",
                                      "late_fences", "wasted_prefetches")}}
 
 
-@pytest.mark.parametrize("name", sorted(BENCH_PREFETCH))
+@pytest.mark.parametrize("name", sorted(REF_PREFETCH))
 def test_bench_prefetch_rows_reproduced_exactly(name):
-    mine = _prefetch_row(tapps, name)
+    assert set(trun.PREFETCH) == set(REF_PREFETCH)
+    mine = trun.prefetch_entry(name, device="cpu")
     assert mine == BENCH["prefetch"][name]
-    assert mine == _prefetch_row(japps, name)
+    assert mine == _ref_prefetch_row(name)
 
 
-# benchmarks/protocol_micro.py::_placement_run / placement_summary
-PLACEMENT_GATED_SIZES = (8, 16, 64)
+@functools.cache
+def _placement(pm, n):
+    """A package's placement rows at ``n`` servers (both apps)."""
+    kw = {"device": "cpu"} if pm is tpm else {}
+    return pm.placement_summary((n,), **kw)
 
 
-def _placement_rows(apps, app, n) -> dict:
-    out, static = {}, {}
-    for mode in ("spread", "packed", "auto"):
-        if app == "socialnet":
-            res = _run(apps, app, n, "drust", n_requests=1200,
-                       placement=mode, skew=0.99)
-        else:
-            res = _run(apps, app, n, "drust", n_ops=38, placement=mode,
-                       skew=0.99)
-        net = res.net
-        digest = res.extra.get("payload_digest",
-                               res.extra.get("result_digest"))
-        row = {"makespan_us": round(res.makespan_us, 2),
-               "round_trips": net["round_trips"],
-               "owner_migrations": net["owner_migrations"],
-               "migration_round_trips": net["migration_round_trips"],
-               "quantum_merges": net["quantum_merges"],
-               "digest": digest}
-        if mode == "auto":
-            best_span = min(v["makespan_us"] for v in static.values())
-            best_rts = min(v["round_trips"] for v in static.values())
-            row.update(
-                best_static_makespan_us=best_span,
-                best_static_round_trips=best_rts,
-                auto_beats_static=bool(
-                    n not in PLACEMENT_GATED_SIZES
-                    or (res.makespan_us < best_span
-                        and net["round_trips"] < best_rts
-                        and all(v["digest"] == digest
-                                for v in static.values()))))
-        else:
-            static[mode] = row
-        out[f"{app}_{mode}_{n}srv"] = row
-    return out
+def _of(rows, app):
+    return {k: v for k, v in rows.items() if k.startswith(f"{app}_")}
 
 
 @pytest.mark.parametrize("n", [2, 8, 16, 64])
 @pytest.mark.parametrize("app", ["socialnet", "dataframe"])
 def test_bench_placement_rows_reproduced_exactly(app, n):
-    mine = _placement_rows(tapps, app, n)
+    mine = _of(_placement(tpm, n), app)
+    assert len(mine) == 3
     assert mine == {k: BENCH["placement_sweep"][k] for k in mine}
-    assert mine == _placement_rows(japps, app, n)
+    assert mine == _of(_placement(jpm, n), app)
     assert mine[f"{app}_auto_{n}srv"]["auto_beats_static"]
-
-
-# benchmarks/protocol_micro.py::_lock_run / lock_sweep_summary
-def _lock_run(core, zipf_keys, n_servers, mode, skew=0.99, n_locks=16,
-              ops_per_server=16, reads=2, seed=0):
-    cl = core.Cluster(n_servers, backend="drust")
-    boot = cl.main_thread(0)
-    if mode == "lease":
-        prims = [core.DRwLock(cl, boot, value=0, server=i % n_servers)
-                 for i in range(n_locks)]
-    else:
-        prims = [core.DMutex(cl, boot, value=0, mode=mode,
-                             server=i % n_servers) for i in range(n_locks)]
-    boot.t_us = 0.0
-    for s in cl.sim.servers:
-        s.cpu_busy_us = 0.0
-    ths = []
-    for s in range(n_servers):
-        th = cl.main_thread(0)
-        th.server = s
-        ths.append(th)
-    n_ops = n_servers * ops_per_server
-    hot = zipf_keys(n_ops, n_locks, alpha=skew, seed=seed)
-
-    def bump(o):
-        o.data += 1
-        return o.data
-
-    for i in range(n_ops):
-        th = ths[i % n_servers]
-        lk = prims[int(hot[i])]
-        if mode == "lease":
-            if i % 10 == 7:
-                lk.write(th, i)
-            else:
-                with lk.read(th):
-                    pass
-        else:
-            lk.with_lock(th, bump, reads=reads, read_bytes=256)
-    return cl
-
-
-def _lock_rows(core, zipf_keys, n) -> dict:
-    out = {}
-    for mode in ("spin", "delegate", "lease"):
-        cl = _lock_run(core, zipf_keys, n, mode)
-        net = cl.sim.net
-        row = {"makespan_us": round(cl.makespan_us(), 2),
-               "round_trips": net.round_trips, "atomics": net.atomics}
-        if mode == "delegate":
-            row.update(delegated_sections=net.delegated_sections,
-                       convoy_completions=net.convoy_completions,
-                       closure_ships=net.closure_ships,
-                       spin_over_delegate=round(
-                           out[f"spin_{n}srv"]["makespan_us"]
-                           / max(1e-9, cl.makespan_us()), 2))
-        elif mode == "lease":
-            row.update(lease_grants=net.lease_grants,
-                       lease_revokes=net.lease_revokes)
-        out[f"{mode}_{n}srv"] = row
-    return out
 
 
 @pytest.mark.parametrize("n", [2, 8, 64])
 def test_bench_lock_sweep_rows_reproduced_exactly(n):
-    from repro.apps.common import zipf_keys as jzipf
-    mine = _lock_rows(tcore, tapps.zipf_keys, n)
+    mine = tpm.lock_sweep_summary((n,))
+    assert len(mine) == 3
     assert mine == {k: BENCH["lock_sweep"][k] for k in mine}
-    assert mine == _lock_rows(jcore, jzipf, n)
+    assert mine == jpm.lock_sweep_summary((n,))
 
 
 def test_zipf_keys_match_jax():

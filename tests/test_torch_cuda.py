@@ -772,3 +772,18 @@ def test_cuda_gemm_default_device_puts_its_tiles_on_the_card(cuda,
              for o in p.objects.values() if isinstance(o.data, torch.Tensor)]
     assert len(tiles) >= 2 * 4 * 4
     assert {t.device.type for t in tiles} == {"cuda"}
+
+
+@pytest.mark.cuda
+def test_cuda_quick_equals_the_committed_bench_file(cuda):
+    """``repro_torch.benchmarks.run.quick`` with GEMM's tiles, DataFrame's
+    chunks and the serving weights on the card: every field of every
+    section of ``BENCH_protocol.json`` but the wall-clock ones, exactly."""
+    import json
+    import pathlib
+    from repro_torch.benchmarks import run
+    base = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                       / "BENCH_protocol.json").read_text())
+    diff = run.diff_sections(run.quick(device="cuda"), base)
+    assert len(diff) == 11
+    assert {s: bad for s, (_, bad) in diff.items() if bad} == {}

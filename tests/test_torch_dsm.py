@@ -1,10 +1,13 @@
 """The carried-over DSM simulator and serving control plane, held to the JAX
 package exactly: stub-step digests, engine stats and ``NetStats`` at 1, 2,
 4 and 8 servers, and the four gated rows of ``BENCH_protocol.json["serve"]``
-reproduced by a port-side run of ``benchmarks/protocol_micro.py::_serve_run``.
+reproduced by the port's serving sweep (``repro_torch.benchmarks.
+protocol_micro``) and equal to the reference's
+(``benchmarks/protocol_micro.py``).
 Everything runs on virtual clocks, so equality is exact."""
 
 import dataclasses
+import functools
 import json
 import pathlib
 
@@ -15,21 +18,15 @@ pytest.importorskip("torch")
 
 import repro.core as jcore                                   # noqa: E402
 import repro.serve as jserve                                 # noqa: E402
-from repro.core.jaxstate import OwnedState as JOwnedState    # noqa: E402
+
+from benchmarks import protocol_micro as jpm                 # noqa: E402
 
 import repro_torch.core as tcore                             # noqa: E402
 import repro_torch.serve as tserve                           # noqa: E402
+from repro_torch.benchmarks import protocol_micro as tpm     # noqa: E402
 from repro_torch.core.torchstate import OwnedState           # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-# benchmarks/protocol_micro.py: SERVE_SLO_US, SERVE_DECODE_CYCLES, SERVE_POINTS
-SERVE_SLO_US = 5000.0
-SERVE_DECODE_CYCLES = 390_000.0
-SERVE_POINTS = (("poisson_1srv", 1, "poisson"),
-                ("poisson_4srv", 4, "poisson"),
-                ("poisson_8srv", 8, "poisson"),
-                ("bursty_4srv", 4, "bursty"))
 
 
 def stub_step(params, cache, tokens):
@@ -81,46 +78,31 @@ def test_stub_fleet_matches_jax(n):
     assert runs[1][0] == local.digest()       # protocol moves costs only
 
 
-def _serve_run(core, serve, owned_state, n_servers, trace):
-    """``protocol_micro._serve_run`` with its defaults, on either package."""
-    cl = core.Cluster(n_servers, backend="drust", ooo=True, qps_per_thread=2)
-    weights = owned_state("bench_w", {"w": np.ones((128, 128), np.float32)})
-
-    def step(params, cache, tokens):
-        return (tokens * 13 + 7) % 997, cache
-
-    fleet = serve.ServeFleet(cl, step_fn=step, page_size=8, slots=4,
-                             max_len=64, weights=weights, wire="int8",
-                             weights_server=0,
-                             decode_cycles=SERVE_DECODE_CYCLES)
-    prompts = serve.synth_prompts(72, seed=11)
-    mk = serve.poisson_trace if trace == "poisson" else serve.bursty_trace
-    drv = serve.OpenLoopDriver(fleet, mk(2500.0, 72, seed=12), prompts,
-                               max_new=8, weight_push_every=8)
-    drv.run()
-    r = drv.result(SERVE_SLO_US)
-    st = fleet.stats()
-    row = {"p50_us": r.p50_us, "p99_us": r.p99_us,
-           "goodput_tok_s": r.goodput_tok_s, "completed": r.completed,
-           "slo_met": r.slo_met, "steps": st["steps"],
-           "round_trips": cl.sim.net.round_trips,
-           "kv_hits": st["kv"]["hits"], "kv_misses": st["kv"]["misses"],
-           "wire_bytes": st["wire_bytes"],
-           "weight_refreshes": st["weight_refreshes"]}
-    return row, fleet.digest(), _net(cl)
+@functools.cache
+def _serve_rows(pm):
+    """A package's ``serve_summary`` (the port's on the CPU)."""
+    return pm.serve_summary(**({"device": "cpu"} if pm is tpm else {}))
 
 
-@pytest.mark.parametrize("name,n,trace", SERVE_POINTS)
+def _serve_point(pm, name, n, trace):
+    """One point of a package's serving sweep: its ``serve_summary`` row,
+    and the fleet's digest and ``NetStats`` from its ``_serve_run``."""
+    kw = {"device": "cpu"} if pm is tpm else {}
+    cl, fleet, _ = pm._serve_run(n, trace, **kw)
+    return _serve_rows(pm)[name], fleet.digest(), _net(cl)
+
+
+@pytest.mark.parametrize("name,n,trace", tpm.SERVE_POINTS)
 def test_serve_bench_rows_reproduced_exactly(name, n, trace):
     baseline = json.loads((ROOT / "BENCH_protocol.json").read_text())
-    mine, digest, net = _serve_run(tcore, tserve, OwnedState, n, trace)
+    mine, digest, net = _serve_point(tpm, name, n, trace)
     assert mine == baseline["serve"][name]
-    ref, jdigest, jnet = _serve_run(jcore, jserve, JOwnedState, n, trace)
+    ref, jdigest, jnet = _serve_point(jpm, name, n, trace)
     assert (mine, digest, net) == (ref, jdigest, jnet)
 
 
 def test_poisson_8srv_pinned_numbers():
-    row, _, _ = _serve_run(tcore, tserve, OwnedState, 8, "poisson")
+    row = _serve_rows(tpm)["poisson_8srv"]
     assert row["p99_us"] == 1212.516
     assert row["wire_bytes"] == 1179936
 

@@ -1,7 +1,9 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
-loads neither ``jax`` nor anything of the JAX package ``repro``, and no
-source file of the port, ``chip_smoke.py`` or the port's examples
-(``examples/torch_*.py``) imports them."""
+(``repro_torch.benchmarks`` and ``repro_torch.launch.elastic`` among them)
+loads neither ``jax``, anything of the JAX package ``repro``, nor the
+reference's ``benchmarks`` folder, and no source file of the port,
+``chip_smoke.py`` or the port's examples (``examples/torch_*.py``) imports
+them."""
 
 import ast
 import json
@@ -29,12 +31,16 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     return name == "jax" or name.startswith("jax.") or name == "repro" \
-        or name.startswith("repro.") or name.startswith("jaxlib")
+        or name.startswith("repro.") or name.startswith("jaxlib") \
+        or name == "benchmarks" or name.startswith("benchmarks.")
 
 
 def test_importing_every_port_module_loads_no_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 30
+    assert {"repro_torch.benchmarks", "repro_torch.benchmarks.protocol_micro",
+            "repro_torch.benchmarks.run",
+            "repro_torch.launch.elastic"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -45,6 +51,7 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in loaded
+    assert "repro_torch.benchmarks.run" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
