@@ -137,6 +137,31 @@ Phases, each printed as one JSON object on its own line:
               ``run_protocol(4)``: crash, fail-over, grow), its report
               line and fail-over report held to the JAX package's.  No
               kernel runs here.
+  8. mesh     the multi-device paths on a one-rank NCCL process group
+              (a ``FileStore`` under ``build/``) and its (1, 1)
+              ("data", "model") mesh on the card: qwen3-moe-235b-a22b cut
+              to 3 of 94 layers, one B=1, T=1024 prefill through
+              ``forward(mesh=)`` with the gather dispatch
+              (``moe_shardmap``: K3 on the local experts, the partial
+              outputs summed over ``model``), whose logits must equal the
+              prefill without a mesh (``torch.equal``: a sum over one rank
+              is the identity) with the same launches (K3 9, K2 3); then,
+              in float32 at a capacity that drops no token (capacity
+              factor E / k), the all-to-all dispatch (``moe_a2a``) against
+              the gather dispatch (relative L2 2e-3).  qwen3-0.6b at 28
+              layers: the DSM-backed engine as the serve phase runs it (8
+              requests of 16 tokens, ``Cluster(4, "drust")``, int8 wire)
+              without a mesh, on the mesh (the same tokens; K1 28 a tick)
+              and on the mesh with ``decode_shard_s`` (the cache's k/v in
+              DTensor shards, the sharded partial softmax in place of K1;
+              its median tick beside the others', a host cost); in bf16
+              the sharded engine's tokens are printed beside the plain
+              engine's, and in float32 (the weights upcast) they must be
+              the same.  Then ``shard_batch`` and a checkpoint
+              ``save``/``restore`` of qwen3-0.6b's parameters from and onto
+              the mesh (DTensors laid out by ``param_specs``; exact), and
+              ``pipeline_apply`` with one stage on the card against the
+              stage applied directly.
 
 Then one line ``{"kernels": [...]}`` with one entry per kernel and shape,
 its launches counted on the path that runs it, and, last, ``{"ok": true,
@@ -351,6 +376,11 @@ def main() -> int:
     t0 = time.perf_counter()
     protocol_phase(dev)
     emit({"phase": "protocol_total", "seconds": time.perf_counter() - t0})
+
+    # 8. the multi-device paths on a one-card mesh --------------------------
+    t0 = time.perf_counter()
+    mesh_phase(torch, dev)
+    emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0})
 
     keys = ("name", "route", "source", "replaces", "path", "shape",
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1673,6 +1703,256 @@ def protocol_phase(dev) -> None:
     need(ok, "the elastic rescale failed its own checks")
     need(line == ELASTIC_LINE, f"elastic line {line!r} != {ELASTIC_LINE!r}")
     need(report == ELASTIC_REPORT, f"elastic report {report}")
+
+
+# ---------------------------------------------------------------------------
+#  the multi-device paths on a one-card NCCL mesh
+# ---------------------------------------------------------------------------
+def mesh_phase(torch, dev) -> None:
+    """``mesh_moe``, ``mesh_serve`` and ``mesh_state`` on the (1, 1)
+    ("data", "model") mesh of a one-rank NCCL process group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        emit({"phase": "mesh", "backend": dist.get_backend(),
+              "world_size": dist.get_world_size(),
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+              "device_type": mesh.device_type})
+        need(mesh.device_type == "cuda", "the mesh is not on the card")
+        for part in (mesh_moe, mesh_serve, mesh_state):
+            part(torch, dev, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def mesh_moe(torch, dev, mesh) -> None:
+    """qwen3-moe-235b-a22b at MOE_LAYERS layers: a B=1, T=1024 prefill
+    without a mesh and through ``moe_shardmap``'s gather dispatch on
+    ``mesh`` (equal logits, equal launches), then in float32 at a capacity
+    that drops nothing, the all-to-all dispatch against the gather one."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serve import make_prefill
+
+    cfg = dataclasses.replace(configs.get("qwen3_moe_235b"),
+                              n_layers=MOE_LAYERS)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (1, 1024), device=dev,
+        generator=torch.Generator(dev).manual_seed(1))}
+
+    def run(c, m):
+        """(logits, launches, ms) of the second of two prefills."""
+        prefill = make_prefill(c, mesh=m)
+        with torch.no_grad():
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, logits = prefill(params, batch)
+            torch.cuda.synchronize()
+        return logits, ops.launch_counts(), (time.perf_counter() - t0) * 1e3
+
+    plain, plain_counts, plain_ms = run(cfg, None)
+    gather, gather_counts, gather_ms = run(cfg, mesh)
+    equal = torch.equal(plain, gather)
+    del plain, gather
+    _cast_tree(params, torch.float32)
+    # capacity factor E / k: every expert takes every token it is routed
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    g32, g32_counts, g32_ms = run(nodrop, mesh)
+    a2a, a2a_counts, a2a_ms = run(
+        dataclasses.replace(nodrop, moe_a2a=True), mesh)
+    rel = _rel(a2a, g32)
+    finite = bool(torch.isfinite(a2a).all())
+    emit({"phase": "mesh_moe", "arch": cfg.name,
+          "reduced": {"n_layers": [configs.get("qwen3_moe_235b").n_layers,
+                                   MOE_LAYERS]},
+          "B": 1, "T": 1024, "gather_equals_no_mesh": equal,
+          "launches": {"no_mesh": plain_counts, "gather": gather_counts,
+                       "gather_float32_nodrop": g32_counts,
+                       "a2a_float32_nodrop": a2a_counts},
+          "prefill_ms": {"no_mesh": plain_ms, "gather": gather_ms,
+                         "gather_float32_nodrop": g32_ms,
+                         "a2a_float32_nodrop": a2a_ms},
+          "a2a_vs_gather_rel_l2": rel, "tol": LOGIT_REL_TOL["float32"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    want = {"flash_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS}
+    for name, counts in (("no mesh", plain_counts),
+                         ("gather", gather_counts),
+                         ("gather float32", g32_counts)):
+        need({k: v for k, v in counts.items() if v} == want,
+             f"MoE prefill {name}: launches {counts}, want {want}")
+    need({k: v for k, v in a2a_counts.items() if v}
+         == {"flash_attention": MOE_LAYERS},
+         f"a2a prefill launches {a2a_counts}")
+    need(equal, "the gather-dispatch prefill on the mesh differs from the "
+                "prefill without a mesh")
+    need(finite, "non-finite a2a logits")
+    need(rel <= LOGIT_REL_TOL["float32"],
+         f"a2a logits rel L2 {rel} against the gather dispatch")
+
+
+def mesh_serve(torch, dev, mesh) -> None:
+    """qwen3-0.6b's DSM-backed engine (the serve phase's requests) without
+    a mesh, on ``mesh``, and on ``mesh`` with ``decode_shard_s``; the last
+    two again in float32."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import Cluster
+    from repro_torch.core.torchstate import OwnedState
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get("qwen3_0_6b")
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+
+    def serve(c, m):
+        engine = ServeEngine(c, OwnedState("weights", params), slots=4,
+                             max_len=2048, cluster=Cluster(4, "drust"),
+                             wire="int8", device=dev, mesh=m)
+        rng = np.random.default_rng(0)
+        prefix = [int(t) for t in rng.integers(0, c.vocab, c.attn_chunk)]
+        reqs = []
+        for i in range(8):
+            tail = [int(t) for t in rng.integers(0, c.vocab, 8 if i % 2 == 0
+                                                 else 12)]
+            reqs.append(engine.submit(prefix + tail if i % 2 == 0 else tail,
+                                      max_new=16))
+        ops.reset_launch_counts()
+        ticks = []
+        with torch.no_grad():
+            while engine.queue or engine.active:
+                t0 = time.perf_counter()
+                engine.step()
+                ticks.append((time.perf_counter() - t0) * 1e3)
+                need(len(ticks) < 1000, "engine did not drain")
+        need(all(r.done for r in reqs), "not every request finished")
+        return {"tokens": [list(r.generated) for r in reqs],
+                "steps": engine.steps, "launches": ops.launch_counts(),
+                "tick_ms_median": statistics.median(ticks),
+                "cache": type(engine.cache["layers"]["k"]).__name__}
+
+    sharded = dataclasses.replace(cfg, decode_shard_s=True)
+    runs = {}
+    # each twice, in turns A B C C B A, so that an order effect shows
+    turns = [("no_mesh", cfg, None), ("mesh", cfg, mesh),
+             ("mesh_decode_shard_s", sharded, mesh)]
+    for key, c, m in turns + turns[::-1]:
+        r = serve(c, m)
+        if key in runs:
+            need(r["tokens"] == runs[key]["tokens"],
+                 f"{key}: a second run served other tokens")
+            runs[key]["tick_ms_median"] = [runs[key]["tick_ms_median"],
+                                           r["tick_ms_median"]]
+        else:
+            runs[key] = r
+    _cast_tree(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype="float32")      # the cache's dtype
+    runs["float32_no_mesh"] = serve(c32, None)
+    runs["float32_mesh_decode_shard_s"] = serve(
+        dataclasses.replace(c32, decode_shard_s=True), mesh)
+    base, base32 = runs["no_mesh"]["tokens"], runs["float32_no_mesh"]["tokens"]
+    same = {k: sum(a == b for a, b in zip(
+        r["tokens"], base32 if k.startswith("float32") else base))
+        for k, r in runs.items()}
+    emit({"phase": "mesh_serve", "arch": cfg.name, "servers": 4,
+          "wire": "int8", "requests": 8,
+          "runs": {k: {kk: v for kk, v in r.items() if kk != "tokens"}
+                   for k, r in runs.items()},
+          "requests_with_the_no_mesh_tokens": same})
+    for k, r in runs.items():
+        want = {} if "decode_shard_s" in k else {
+            "decode_attention": cfg.n_layers * r["steps"]}
+        need({n: v for n, v in r["launches"].items() if v} == want,
+             f"{k}: launches {r['launches']}, want {want}")
+    need(runs["mesh"]["tokens"] == base, "the engine on the mesh served "
+                                         "other tokens")
+    need(runs["mesh_decode_shard_s"]["cache"] == "DTensor",
+         "the decode_shard_s cache is not in DTensor shards")
+    need(runs["float32_mesh_decode_shard_s"]["tokens"] == base32,
+         "the decode_shard_s engine served other tokens (float32)")
+
+
+def mesh_state(torch, dev, mesh) -> None:
+    """``shard_batch`` and a checkpoint round trip of qwen3-0.6b's
+    parameters from and onto ``mesh``, then ``pipeline_apply`` with one
+    stage on the card."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.core.torchstate import tree_leaves
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.dist.sharding import is_spec, param_specs, place
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import shard_batch, synthetic_batches
+
+    cfg = configs.get("qwen3_0_6b")
+    batch = next(synthetic_batches(cfg.vocab, 8, 1024))
+    placed = shard_batch(mesh, batch)
+    need(all(isinstance(v, DTensor) and v.device.type == "cuda"
+             and bool((v.full_tensor().cpu() == torch.from_numpy(batch[k]))
+                      .all()) for k, v in placed.items()),
+         "shard_batch on the mesh")
+
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    specs = param_specs(mesh, params)
+    flat = tree_leaves(specs, is_leaf=is_spec)
+    on_mesh = place(params, specs, mesh)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        save(Path(d) / "ck", on_mesh, color=2)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, manifest = restore(Path(d) / "ck", init_params(
+            cfg, device="meta"), mesh=mesh, specs=specs)
+        restore_s = time.perf_counter() - t0
+    exact = all(isinstance(b, DTensor) and torch.equal(b.full_tensor(), a)
+                for a, b in zip(tree_leaves(params), tree_leaves(back)))
+    n_sharded = sum(any(e is not None for e in s) for s in flat)
+    del back, on_mesh
+
+    pod = make_mesh((1,), ("pod",))
+    gen = torch.Generator(dev).manual_seed(3)
+    w = torch.randn((1, 1024, 1024), device=dev, generator=gen) * 0.03
+    x = torch.randn((8, 256, 1024), device=dev, generator=gen)
+    with torch.no_grad():
+        y = pipeline_apply(lambda p, xb: torch.tanh(xb @ p), pod, w, x,
+                           n_microbatches=4)
+        want = torch.tanh(x @ w[0])
+    pipe_err = _err(y, want)
+    emit({"phase": "mesh_state", "arch": cfg.name,
+          "shard_batch": {k: [str(p) for p in v.placements]
+                          for k, v in placed.items()},
+          "checkpoint": {"exact": exact, "color": manifest["color"],
+                         "leaves": len(flat), "sharded_specs": n_sharded,
+                         "save_s": save_s, "restore_s": restore_s},
+          "pipeline_single_stage_max_abs_err": pipe_err})
+    need(exact and manifest["color"] == 2,
+         "checkpoint round trip onto the mesh is not exact")
+    need(pipe_err <= 1e-4, f"pipeline_apply error {pipe_err}")
 
 
 def _cast_tree(tree, like) -> None:

@@ -22,8 +22,11 @@ as float32 (numpy has no bf16), as the reference does.
 against ``error_bound``) and dequantizes them on restore; small leaves
 (norms, scalars, integer steps) stay exact.
 
-Restoring onto a mesh of devices waits for the multi-device slice (ROADMAP
-Queue 1 item 10).
+Leaves are stored with their global shapes, so a checkpoint taken on one
+mesh restores onto any other: ``save`` of a tree of ``DTensor``s gathers
+each leaf (a collective every rank of the mesh runs) and rank 0 writes;
+``restore(..., mesh=, specs=)`` places each leaf as a ``DTensor`` laid out
+by its spec (``dist.sharding``).
 """
 
 from __future__ import annotations
@@ -34,15 +37,20 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.torchstate import ColoredAddr, OwnedState, tree_map
 from repro_torch.dist.compression import (dequantize_int8, error_bound,
                                           quantize_int8)
+from repro_torch.dist.sharding import PartitionSpec, to_placements
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     """{path: leaf} in the reference's path format; ``None`` is an empty
-    subtree, as in JAX."""
+    subtree, as in JAX, and a ``PartitionSpec`` is a leaf."""
+    if isinstance(tree, PartitionSpec):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -57,15 +65,11 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     return out
 
 
-def _no_mesh(mesh, specs) -> None:
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh: multi-device support is ROADMAP Queue 1 "
-            "item 10")
-
-
 def _host(leaf) -> np.ndarray:
-    """A leaf as a numpy array; bf16 as float32."""
+    """A leaf as a numpy array; bf16 as float32.  A ``DTensor`` is gathered
+    whole first (every rank of its mesh must call this)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -77,11 +81,23 @@ def save(path: str | Path, tree: Any, *, color: int = 0, step: int = 0,
          extra: dict | None = None, quantize: bool = False,
          min_quant_size: int = 64) -> Path:
     path = Path(path)
+    leaves = _flatten(tree)
+    if any(isinstance(v, DTensor) for v in leaves.values()):
+        host = {k: _host(v) for k, v in leaves.items()}   # every rank gathers
+        if dist.get_rank() == 0:
+            _write(path, host, color, step, extra, quantize, min_quant_size)
+        dist.barrier()
+        return path
+    return _write(path, {k: _host(v) for k, v in leaves.items()}, color,
+                  step, extra, quantize, min_quant_size)
+
+
+def _write(path: Path, host: dict, color, step, extra, quantize,
+           min_quant_size) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     arrays = {}
     manifest_leaves = {}
-    for k, v in _flatten(tree).items():
-        a = _host(v)
+    for k, a in host.items():
         entry = {"shape": list(a.shape), "dtype": str(a.dtype)}
         if quantize and a.dtype.kind == "f" and a.size >= min_quant_size:
             q, scale = quantize_int8(torch.from_numpy(a))
@@ -112,9 +128,15 @@ def save(path: str | Path, tree: Any, *, color: int = 0, step: int = 0,
 def restore(path: str | Path, like: Any, *, mesh=None, specs=None) -> tuple:
     """Restore into the structure of ``like`` (a tree of tensors, ``meta``
     ones included, whose dtypes and devices the restored leaves take; a
-    ``meta`` leaf comes back on the CPU).  Returns (tree, manifest)."""
-    _no_mesh(mesh, specs)
+    ``meta`` leaf comes back on the CPU).  Returns (tree, manifest).
+
+    With ``mesh`` and ``specs`` (a tree of ``PartitionSpec``s beside
+    ``like``, e.g. ``param_specs(mesh, like)``) each leaf with a spec comes
+    back as a ``DTensor`` on the mesh's device, laid out by it: every rank
+    reads the file and keeps its own shards, with no communication."""
     path = Path(path)
+    spec_of = _flatten(specs) if mesh is not None and specs is not None \
+        else {}
     manifest = json.loads(Path(str(path) + ".json").read_text())
     with np.load(str(path) + ".npz") as data:
         def one(k, ref):
@@ -123,6 +145,10 @@ def restore(path: str | Path, like: Any, *, mesh=None, specs=None) -> tuple:
                                     torch.from_numpy(data[k + "::scale"]))
             else:
                 t = torch.from_numpy(np.array(data[k]))
+            if k in spec_of:
+                return distribute_tensor(
+                    t.to(device=mesh.device_type, dtype=ref.dtype), mesh,
+                    to_placements(mesh, spec_of[k]), src_data_rank=None)
             dev = "cpu" if ref.device.type == "meta" else ref.device
             return t.to(device=dev, dtype=ref.dtype)
         out = {k: one(k, ref) for k, ref in _flatten(like).items()}

@@ -1,1 +1,2 @@
-"""Launch drivers.  Ported so far: ``serve``."""
+"""Entry points: ``serve``, ``train``, ``elastic`` and ``trace``, and
+``mesh`` (device meshes and local ranks)."""

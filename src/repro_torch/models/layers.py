@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from repro_torch.dist.sharding import ulysses_heads
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -178,6 +179,8 @@ def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,
     (``transformer._attn_with_ring``) instead."""
     q, k, v = project_qkv(cfg, p, x, positions)
     kernels = use_kernels(cfg, x)
+    if cfg.ulysses and cache is None:
+        q, k, v = ulysses_heads(q), ulysses_heads(k), ulysses_heads(v)
 
     if cache is None:
         if kernels:

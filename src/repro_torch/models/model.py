@@ -24,18 +24,19 @@ def _nll_sum(x, labels, head):
     return (torch.logsumexp(logits, dim=-1) - true).sum()
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, mesh=None):
     """Causal-LM cross entropy in float32 (+ 0.01 x the MoE load-balance
     aux), on the text positions only when the batch has prefix embeddings.
 
     With ``cfg.chunked_ce = n`` the head matmul and CE run per sequence
     chunk, each under ``torch.utils.checkpoint``, so the (B,T,V) logits
     (bf16 and the float32 cast) never exist at once, in the backward
-    either: each chunk's logits are recomputed there."""
+    either: each chunk's logits are recomputed there.  ``mesh`` is passed
+    on to the forward."""
     labels = batch["labels"].long()
     prefix = cfg.prefix_len and "prefix_embeds" in batch
     if cfg.chunked_ce:
-        x, aux = forward_hidden(cfg, params, batch)
+        x, aux = forward_hidden(cfg, params, batch, mesh=mesh)
         if prefix:
             x = x[:, -labels.shape[1]:, :]
         B, Tlen, _ = x.shape
@@ -49,7 +50,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
                                use_reentrant=False) for i in range(n))
         return total / (B * Tlen) + 0.01 * aux
 
-    logits, aux = forward(cfg, params, batch)
+    logits, aux = forward(cfg, params, batch, mesh=mesh)
     if prefix:
         logits = logits[:, -labels.shape[1]:, :]     # loss on text positions
     logits = logits.float()

@@ -15,8 +15,13 @@ slots past it are zeros, which the reference's ``keep`` mask makes of them
 anyway.  The output is summed over experts in float32 and cast once, so
 the bf16 result does not depend on the order of ``index_add_``'s atomics.
 
-The expert-parallel paths (``moe_shardmap``, ``moe_a2a_block``) come with
-the multi-device slice (ROADMAP Queue 1 item 10).
+Expert parallelism over the ``model`` dim of a mesh (``moe_shardmap``):
+the default dispatch runs ``moe_block`` on each rank's local experts for
+its data shard of the tokens and sums the partial outputs over ``model``
+(the reference's gather + psum); with ``cfg.moe_a2a`` each rank keeps its
+sequence shard and ships its tokens' top-k copies to the experts' owners
+with ``all_to_all`` (``moe_a2a_block``).  The local experts of the gather
+dispatch still go through ``gmm`` (K3 on the card).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import data_axes, mesh_coord, mesh_shape
 from repro_torch.kernels import ops, ref
 from .config import ModelConfig
 from . import layers as L
@@ -48,11 +55,9 @@ def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return min(n_tokens, c)
 
 
-def _route(cfg: ModelConfig, p, xt):
-    """Route the tokens xt (N, D) -> (aux_loss, g, idx, keep): each
-    expert's top-C router scores g (E, C), -inf where no token fills the
-    slot, their token ids idx (E, C) and keep = g > -inf, which holds on a
-    prefix of each row."""
+def _top_k(cfg: ModelConfig, p, xt):
+    """Router of the tokens xt (N, D) -> (aux_loss, top_p (N, K)
+    renormalised, top_ids (N, K))."""
     N = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
     logits = xt.float() @ p["router"].float()
@@ -66,6 +71,17 @@ def _route(cfg: ModelConfig, p, xt):
         0, top_ids.reshape(-1),
         torch.full((N * K,), 1.0 / (N * K), device=xt.device))
     aux = E * torch.sum(me * ce)
+    return aux, top_p, top_ids
+
+
+def _route(cfg: ModelConfig, p, xt):
+    """Route the tokens xt (N, D) -> (aux_loss, g, idx, keep): each
+    expert's top-C router scores g (E, C), -inf where no token fills the
+    slot, their token ids idx (E, C) and keep = g > -inf, which holds on a
+    prefix of each row."""
+    N = xt.shape[0]
+    E = cfg.n_experts
+    aux, top_p, top_ids = _top_k(cfg, p, xt)
 
     # per-token score for each expert: router prob if chosen, else -inf
     assigned = torch.full((N, E), float("-inf"), device=xt.device)
@@ -77,13 +93,22 @@ def _route(cfg: ModelConfig, p, xt):
     return aux, g, idx, g > float("-inf")
 
 
-def moe_block(cfg: ModelConfig, p, x):
-    """x: (B, T, D).  Returns (y (B, T, D), aux_loss)."""
+def moe_block(cfg: ModelConfig, p, x, axis_name: str | None = None,
+              axis_size: int = 1, mesh=None):
+    """x: (B, T, D).  Returns (y (B, T, D), aux_loss).
+
+    With ``axis_name`` (a dim of ``mesh``, of ``axis_size`` ranks) ``p``
+    holds this rank's slice of the experts, ``E / axis_size`` of them from
+    ``e0 = rank * E_loc``: the tokens are routed over all E, the local
+    experts run, and the partial outputs are summed over the dim."""
     B, T, D = x.shape
     N = B * T
-    E = cfg.n_experts
+    E_loc = cfg.n_experts // axis_size
     xt = x.reshape(N, D)
     aux, g, idx, keep = _route(cfg, p, xt)
+    if axis_name is not None:
+        e0 = mesh_coord(mesh, axis_name) * E_loc
+        g, idx, keep = (t[e0:e0 + E_loc] for t in (g, idx, keep))
     C = idx.shape[1]
     gate = torch.where(keep, g, 0.0).to(x.dtype)
     rows = keep.sum(1, dtype=torch.int32)          # kept slots, on the device
@@ -93,5 +118,113 @@ def moe_block(cfg: ModelConfig, p, x):
     out = gmm(h, p["w_down"], rows) * gate[..., None]            # (E, C, D)
     out = torch.where(keep[..., None], out, 0.0)
     y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
-    y.index_add_(0, idx.reshape(-1), out.reshape(E * C, D).float())
+    y.index_add_(0, idx.reshape(-1), out.reshape(E_loc * C, D).float())
+    if axis_name is not None:
+        y = coll.exit_sum(y, coll.groups(mesh, (axis_name,)))
+    return y.to(x.dtype).reshape(B, T, D), aux
+
+
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def moe_shardmap(cfg: ModelConfig, mesh, p, x):
+    """The MoE over a mesh: tokens split over the data dims (``pod``,
+    ``data``), experts over ``model``.  ``p`` and ``x`` (B, T, D) are the
+    replicated globals; returns the global (y, aux) on every rank, aux
+    averaged over the data and model ranks (the reference's ``pmean``).
+
+    The default dispatch gives each rank its data shard of the tokens and
+    its ``model`` slice of the experts (``moe_block`` with ``axis_name``).
+    With ``cfg.moe_a2a`` (when ``model`` divides T) each rank also keeps
+    only its sequence shard and routes it with ``moe_a2a_block``."""
+    dp = data_axes(mesh)
+    n_model = mesh_shape(mesh)["model"]
+    E_loc = cfg.n_experts // n_model
+    region = coll.groups(mesh, dp + ("model",))
+    b, n_dp = coll.rank_in(mesh, dp)
+    B, T, _ = x.shape
+    if B % n_dp:
+        raise ValueError(f"batch {B} does not split over the data dims "
+                         f"{dp} of {n_dp} ranks")
+    e0 = mesh_coord(mesh, "model") * E_loc
+    p_loc = {k: coll.enter(v, slice(e0, e0 + E_loc) if k in _EXPERT_LEAVES
+                           else slice(None), region)
+             for k, v in p.items()}
+    rows = slice(b * (B // n_dp), (b + 1) * (B // n_dp))
+
+    if cfg.moe_a2a and T % n_model == 0:
+        t = mesh_coord(mesh, "model")
+        T_loc = T // n_model
+        x_loc = coll.enter(x, (rows, slice(t * T_loc, (t + 1) * T_loc)),
+                           region)
+        y, aux = moe_a2a_block(cfg, p_loc, x_loc, n_model, mesh=mesh)
+        y = coll.exit_gather(y, 1, coll.groups(mesh, ("model",)))
+    else:
+        x_loc = coll.enter(x, rows, region)
+        y, aux = moe_block(cfg, p_loc, x_loc, axis_name="model",
+                           axis_size=n_model, mesh=mesh)
+    return (coll.exit_gather(y, 0, coll.groups(mesh, dp)),
+            coll.exit_mean(aux, region))
+
+
+def moe_a2a_block(cfg: ModelConfig, p, x, n_model: int,
+                  axis_name: str = "model", mesh=None):
+    """Expert-parallel MoE with all-to-all dispatch, on one rank of the
+    ``axis_name`` dim of ``mesh``: x (B_loc, T_loc, D) is this rank's token
+    shard and ``p`` holds its slice of the experts (E_loc, D, F).
+
+    Each destination rank gets a send buffer of capacity
+    ``C = max(4, ceil4(N k cf / n_model))`` (at most N k) holding the
+    top-C (token, expert) pairs routed to it by gate; three
+    ``all_to_all`` calls ship tokens, token ids and local expert ids, the
+    local experts run on the rows they received (``torch.matmul``, as the
+    reference runs them outside any kernel), one ``all_to_all`` ships the
+    results back, and each is added to its token scaled by its gate."""
+    B, T, D = x.shape
+    N = B * T
+    K = cfg.top_k
+    E_loc = cfg.n_experts // n_model
+    xt = x.reshape(N, D)
+    aux, top_p, top_ids = _top_k(cfg, p, xt)
+
+    dest = top_ids // E_loc                                      # (N, K)
+    cap = max(4, -(-int(N * K * cfg.capacity_factor / n_model) // 4) * 4)
+    cap = min(cap, N * K)
+    flat_tok = torch.arange(N, device=x.device).repeat_interleave(K)
+    flat_exp = top_ids.reshape(-1)
+    flat_gate = top_p.reshape(-1)
+    flat_dest = dest.reshape(-1)
+
+    # per-destination send buffers: the top-cap (token, expert) pairs
+    score = torch.where(
+        flat_dest[None, :] == torch.arange(n_model, device=x.device)[:, None],
+        flat_gate[None, :], float("-inf"))                     # (n_model, NK)
+    g, idx = torch.topk(score, cap, dim=1)
+    keep = g > float("-inf")
+    send_x = torch.where(keep[..., None], xt[flat_tok[idx]], 0.0)
+    send_tok = torch.where(keep, flat_tok[idx], -1).to(torch.int32)
+    send_eloc = (flat_exp[idx] % E_loc).to(torch.int32)
+    send_gate = torch.where(keep, g, 0.0)
+
+    group = coll.groups(mesh, (axis_name,))[0]
+    rx = coll.all_to_all(send_x, group).reshape(n_model * cap, D)
+    r_tok = coll.all_to_all(send_tok, group).reshape(-1)
+    r_eloc = coll.all_to_all(send_eloc, group).reshape(-1)
+    r_valid = r_tok >= 0
+
+    # the local experts, each on the received rows routed to it
+    out = torch.zeros((n_model * cap, D), dtype=x.dtype, device=x.device)
+    for e in range(E_loc):
+        sel = torch.nonzero(r_valid & (r_eloc == e)).reshape(-1)
+        if sel.numel() == 0:
+            continue
+        xe = rx[sel]
+        h = F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+        out = out.index_add(0, sel, h @ p["w_down"][e])
+
+    back = coll.all_to_all(out.reshape(n_model, cap, D), group)
+    tok = torch.clamp_min(send_tok, 0).reshape(-1).long()
+    gate = torch.where(send_tok >= 0, send_gate, 0.0).reshape(-1)
+    y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    y = y.index_add(0, tok, back.reshape(-1, D).float() * gate[:, None])
     return y.to(x.dtype).reshape(B, T, D), aux

@@ -26,6 +26,14 @@ shared by every slot:
   rglru              : h (B, dl) float32 + conv state (B, 3, dl)
 Decode writes every new entry and state into the cache in place — the
 reference's donated buffer.
+
+On a mesh (``mesh=``, a ``DeviceMesh``; see ``dist/sharding.py``) every
+rank runs the same program on replicated tensors, and the reference's
+explicit sharded regions split the work: the MoE goes through
+``moe_shardmap``, and a ``decode_shard_s`` model decodes against a cache
+whose attention k/v leaves are ``DTensor`` shards
+(``decode_sharded.attn_decode_sharded``).  ``mesh=None`` falls back to the
+process-wide mesh of ``dist.sharding.set_mesh``, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,7 +45,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.torchstate import tree_map
+from repro_torch.dist.collectives import rank_in
+from repro_torch.dist.sharding import (current_mesh, data_axes, mesh_shape,
+                                       shard_act)
 from .config import ModelConfig
+from . import decode_sharded as DS
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RGLRU
@@ -170,9 +182,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 #  caches
 # ---------------------------------------------------------------------------
+def _attn_len(cfg: ModelConfig, max_len: int) -> int:
+    """An attention cache's S: max_len (or the window, for a ring) rounded
+    up to ``attn_chunk``."""
+    S = min(max_len, cfg.window) if cfg.window else max_len
+    return -(-S // cfg.attn_chunk) * cfg.attn_chunk
+
+
 def _layer_cache(cfg: ModelConfig, i: int, B: int, max_len: int, lead,
-                 device):
-    """Layer ``i``'s zeroed cache, every leaf with leading dims ``lead``."""
+                 device, split=(1, 1)):
+    """Layer ``i``'s zeroed cache, every leaf with leading dims ``lead``;
+    attention k/v hold the (B / split[0], S / split[1]) shard."""
     dtype = getattr(torch, cfg.dtype)
 
     def zeros(*shape, dt=dtype):
@@ -183,10 +203,10 @@ def _layer_cache(cfg: ModelConfig, i: int, B: int, max_len: int, lead,
         return {"S": zeros(B, cfg.d_model // M, M, M, dt=torch.float32),
                 "last": zeros(B, cfg.d_model), "last_c": zeros(B, cfg.d_model)}
     if cfg._is_attn_layer(i):
-        S = min(max_len, cfg.window) if cfg.window else max_len
-        S = -(-S // cfg.attn_chunk) * cfg.attn_chunk
-        c = {"k": zeros(B, S, cfg.n_kv_heads, cfg.hd),
-             "v": zeros(B, S, cfg.n_kv_heads, cfg.hd)}
+        S = _attn_len(cfg, max_len)
+        b, s = B // split[0], S // split[1]
+        c = {"k": zeros(b, s, cfg.n_kv_heads, cfg.hd),
+             "v": zeros(b, s, cfg.n_kv_heads, cfg.hd)}
         if cfg.window:
             # unfilled ring slots must fail the window mask: far-past
             c["slot_pos"] = torch.full((*lead, S), -(1 << 30),
@@ -197,26 +217,59 @@ def _layer_cache(cfg: ModelConfig, i: int, B: int, max_len: int, lead,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None, *,
-               device="cuda"):
+               device="cuda", mesh=None):
     """Zeroed decode cache in the layout of ``init_params`` (see the module
     docstring), with attention caches S = max_len (or the window, for a
-    ring) rounded up to ``attn_chunk``, and ``length`` 0."""
+    ring) rounded up to ``attn_chunk``, and ``length`` 0.
+
+    With ``mesh`` and ``cfg.decode_shard_s`` (and no window) each rank
+    allocates only its shard of the attention k/v leaves, batch over the
+    data dims and S over ``model``, as ``DTensor``s; when the batch or S do
+    not divide, or otherwise, the cache is replicated."""
     dev = resolve_device(device)
     max_len = max_len or cfg.max_target_len
     n_scanned, tail = _layer_plan(cfg)
     period = cfg.attn_every or 1
+    shard = (mesh is not None and cfg.decode_shard_s and not cfg.window
+             and DS.shards_cache(mesh, batch, _attn_len(cfg, max_len)))
+    split = (1, 1)
+    if shard:
+        split = (rank_in(mesh, data_axes(mesh))[1],
+                 mesh_shape(mesh)["model"])
+
+    def make(i, lead):
+        c = _layer_cache(cfg, i, batch, max_len, lead, dev, split)
+        if shard and "k" in c:
+            for key in ("k", "v"):
+                c[key] = _as_shards(c[key], mesh, len(lead), split)
+        return c
+
     if cfg.scan_layers:
         lead = (n_scanned // period,)
-        groups = [_layer_cache(cfg, j, batch, max_len, lead, dev)
-                  for j in range(period)]
+        groups = [make(j, lead) for j in range(period)]
         layers = groups[0] if period == 1 else groups
     else:
-        layers = [_layer_cache(cfg, i % period, batch, max_len, (), dev)
-                  for i in range(n_scanned)]
-    return {"layers": layers,
-            "tail": [_layer_cache(cfg, i, batch, max_len, (), dev)
-                     for i in tail],
+        layers = [make(i % period, ()) for i in range(n_scanned)]
+    return {"layers": layers, "tail": [make(i, ()) for i in tail],
             "length": 0}
+
+
+def _as_shards(local, mesh, n_lead: int, split):
+    """A local (..., b, s, Hkv, hd) shard as the DTensor whose global
+    batch dim (``n_lead``) is split ``split[0]`` ways over the data dims
+    and S ``split[1]`` ways over ``model``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dp = data_axes(mesh)
+    placements = [Shard(n_lead) if a in dp else
+                  Shard(n_lead + 1) if a == "model" else Replicate()
+                  for a in mesh.mesh_dim_names]
+    glob = list(local.shape)
+    glob[n_lead] *= split[0]
+    glob[n_lead + 1] *= split[1]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(glob),
+                              stride=torch.empty(glob, device="meta")
+                              .stride())
 
 
 # ---------------------------------------------------------------------------
@@ -253,9 +306,10 @@ def _attn_with_ring(cfg: ModelConfig, p, x, positions, cache, length: int):
     return torch.einsum("btnh,nhd->btd", out, p["wo"])
 
 
-def _block(cfg: ModelConfig, p, x, positions, cache, length):
+def _block(cfg: ModelConfig, p, x, positions, cache, length, mesh=None):
     """One layer.  cache=None for prefill/forward; else this layer's cache
     views, updated in place.  Returns (x, the layer's MoE aux loss)."""
+    mesh = mesh if mesh is not None else current_mesh()
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "rwkv":
         y, st = RWKV.time_mix(cfg, p, h, cache)
@@ -272,18 +326,26 @@ def _block(cfg: ModelConfig, p, x, positions, cache, length):
             _store(cache, st)
     elif cache is not None and cfg.window:
         y = _attn_with_ring(cfg, p["attn"], h, positions, cache, length)
+    elif cache is not None and cfg.decode_shard_s and mesh is not None:
+        y = DS.attn_decode_sharded(cfg, mesh, p["attn"], h, positions, cache,
+                                   length)
     else:
         c = None if cache is None else {**cache, "length": length}
         y, _ = L.attn_block(cfg, p["attn"], h, positions, cache=c,
                             window=cfg.window)
-    x = x + y
+    x = shard_act(x + y, mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    aux = 0.0
     if not cfg.n_experts:
-        return x + L.mlp_block(cfg, p["mlp"], h2), 0.0
-    y2, aux = MOE.moe_block(cfg, p["moe"], h2)
-    if cfg.dense_residual:
-        y2 = y2 + L.mlp_block(cfg, p["mlp"], h2)
-    return x + y2, aux
+        y2 = L.mlp_block(cfg, p["mlp"], h2)
+    else:
+        if mesh is not None:
+            y2, aux = MOE.moe_shardmap(cfg, mesh, p["moe"], h2)
+        else:
+            y2, aux = MOE.moe_block(cfg, p["moe"], h2)
+        if cfg.dense_residual:
+            y2 = y2 + L.mlp_block(cfg, p["mlp"], h2)
+    return shard_act(x + y2, mesh), aux
 
 
 def _head(cfg: ModelConfig, params):
@@ -293,15 +355,15 @@ def _head(cfg: ModelConfig, params):
 # ---------------------------------------------------------------------------
 #  forward / decode
 # ---------------------------------------------------------------------------
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, mesh=None):
     """Prefill forward.  batch: tokens (B,T) [+ prefix_embeds (B,P,D) for
     the VLM/audio stubs].  Returns (logits, aux_loss)."""
-    x, aux_total = forward_hidden(cfg, params, batch)
+    x, aux_total = forward_hidden(cfg, params, batch, mesh=mesh)
     logits = torch.einsum("btd,dv->btv", x, _head(cfg, params))
     return logits, aux_total
 
 
-def forward_hidden(cfg: ModelConfig, params, batch):
+def forward_hidden(cfg: ModelConfig, params, batch, mesh=None):
     """Forward up to the final norm (no logits).  Returns (x, aux_total):
     the MoE aux loss summed over layers, 0.0 without experts.
 
@@ -315,22 +377,23 @@ def forward_hidden(cfg: ModelConfig, params, batch):
     if cfg.prefix_len and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = shard_act(x, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
     for p_layer in _scanned(cfg, params["layers"], unbind=True):
         if remat:
             x, aux = checkpoint(_block, cfg, p_layer, x, positions, None,
-                                None, use_reentrant=False)
+                                None, mesh, use_reentrant=False)
         else:
-            x, aux = _block(cfg, p_layer, x, positions, None, None)
+            x, aux = _block(cfg, p_layer, x, positions, None, None, mesh)
         aux_total = aux_total + aux
     for p_layer in params["tail"]:
-        x, aux = _block(cfg, p_layer, x, positions, None, None)
+        x, aux = _block(cfg, p_layer, x, positions, None, None, mesh)
         aux_total = aux_total + aux
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens):
+def decode_step(cfg: ModelConfig, params, cache, tokens, mesh=None):
     """One decode step.  tokens: (B,T).  Returns (logits (B,T,V), cache);
     the cache's entries and states are updated in place and the returned
     cache carries ``length + T``."""
@@ -341,7 +404,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     p_layers = _scanned(cfg, params["layers"]) + params["tail"]
     c_layers = _scanned(cfg, cache["layers"]) + cache["tail"]
     for p_layer, c_layer in zip(p_layers, c_layers, strict=True):
-        x, _ = _block(cfg, p_layer, x, positions, c_layer, length)
+        x, _ = _block(cfg, p_layer, x, positions, c_layer, length, mesh)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("btd,dv->btv", x, _head(cfg, params))
     return logits, {"layers": cache["layers"], "tail": cache["tail"],

@@ -78,7 +78,11 @@ class ServeEngine:
     clock; ``prefetch_window`` is how many queued requests ahead the
     region entry hint covers; ``kv`` shares a fleet-wide page table;
     ``device`` is where the real model's cache and tokens live (the
-    weights must already be there).
+    weights must already be there); ``mesh`` (a ``DeviceMesh``) runs the
+    model step on it: every rank runs the engine in lockstep on the same
+    requests and replicated weights, and the step's collectives (the
+    sharded decode of a ``decode_shard_s`` model, the MoE's expert
+    parallelism) keep the ranks together.
     """
 
     def __init__(self, cfg=None, weights: OwnedState | None = None,
@@ -115,14 +119,11 @@ class ServeEngine:
             from repro_torch.models import init_cache
             from repro_torch.models.transformer import resolve_device
             from .serve_step import make_serve_step
-            if mesh is not None:
-                raise NotImplementedError("meshes come with the "
-                                          "multi-device slice")
             self.device = resolve_device(device)
             # the step updates this cache in place (the reference donates it)
-            self._step = make_serve_step(cfg)
+            self._step = make_serve_step(cfg, mesh=mesh)
             self.cache = init_cache(cfg, slots, self.max_len,
-                                    device=self.device)
+                                    device=self.device, mesh=mesh)
         self.active: dict[int, Request] = {}        # slot -> request
         self._t_us = 0.0                            # local-plane clock
         self.queue: list[Request] = []

@@ -17,23 +17,24 @@ from repro_torch.models import decode_step, forward
 from repro_torch.models.config import ModelConfig
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """serve_step(params, cache, tokens (B,1)) -> (next_tokens int32 (B,1),
-    cache), the cache updated in place."""
+    cache), the cache updated in place; ``mesh`` is passed on to
+    ``decode_step``."""
 
     def serve_step(params, cache, tokens):
-        logits, cache = decode_step(cfg, params, cache, tokens)
+        logits, cache = decode_step(cfg, params, cache, tokens, mesh=mesh)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], cache
 
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig):
+def make_prefill(cfg: ModelConfig, mesh=None):
     """prefill(params, batch) -> (last_logits, per-position logits)."""
 
     def prefill(params, batch):
-        logits, _ = forward(cfg, params, batch)
+        logits, _ = forward(cfg, params, batch, mesh=mesh)
         return logits[:, -1, :], logits
 
     return prefill

@@ -34,11 +34,19 @@ def synthetic_batches(vocab: int, global_batch: int, seq_len: int,
 
 
 def shard_batch(mesh, batch, device="cuda"):
-    """A host batch as tensors on ``device``.  Placing it over a mesh of
-    devices waits for the multi-device slice (ROADMAP Queue 1 item 10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh: multi-device support is ROADMAP "
-            "Queue 1 item 10")
-    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """A host batch as tensors on ``device``; with ``mesh``, each leaf a
+    ``DTensor`` on the mesh's device, laid out by ``batch_specs``: each
+    rank keeps the slice its mesh coordinates are assigned, cut from its
+    own copy of the batch (every rank draws the same batch from the same
+    seed), with no communication."""
+    tensors = {k: torch.as_tensor(np.ascontiguousarray(v))
+               for k, v in batch.items()}
+    if mesh is None:
+        return {k: t.to(device) for k, t in tensors.items()}
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.dist.sharding import batch_specs, to_placements
+    specs = batch_specs(mesh, tensors)
+    return {k: distribute_tensor(t.to(mesh.device_type), mesh,
+                                 to_placements(mesh, specs[k]),
+                                 src_data_rank=None)
+            for k, t in tensors.items()}

@@ -30,11 +30,21 @@ def _unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def make_train_step(cfg: ModelConfig, opt: OptConfig,
+def _replicated(batch):
+    """The batch with each ``DTensor`` leaf (``shard_batch`` on a mesh)
+    gathered whole: the model's tensors are replicated on every rank."""
+    from torch.distributed.tensor import DTensor
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt: OptConfig, mesh=None,
                     microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) with metrics {loss, grad_norm, lr}; params and opt_state are
-    updated in place and returned.
+    updated in place and returned.  ``mesh`` is passed on to ``loss_fn``;
+    on it the parameters and optimizer state are replicated, so every rank
+    ends the step with the same ones.
 
     With microbatches > 1 the batch is split along axis 0 and the
     gradients accumulate in float32 over the microbatches, one after the
@@ -46,7 +56,7 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss = loss_fn(cfg, _unflatten(params, leaves), batch)
+            loss = loss_fn(cfg, _unflatten(params, leaves), batch, mesh=mesh)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -76,7 +86,7 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig,
         return loss_acc * inv, _unflatten(params, [g * inv for g in g_acc])
 
     def train_step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        loss, grads = grads_of(params, _replicated(batch))
         params, opt_state, metrics = apply_updates(opt, params, grads,
                                                    opt_state)
         return params, opt_state, dict(metrics, loss=loss)
@@ -93,11 +103,12 @@ class TrainState:
     updated in place by the next step)."""
 
     def __init__(self, cfg: ModelConfig, opt: OptConfig, params,
-                 microbatches: int = 1):
+                 mesh=None, microbatches: int = 1):
         self.cfg, self.opt = cfg, opt
         opt_state = init_opt_state(opt, params)
         self.state = OwnedState("train_state", (params, opt_state))
-        self._step = make_train_step(cfg, opt, microbatches=microbatches)
+        self._step = make_train_step(cfg, opt, mesh=mesh,
+                                     microbatches=microbatches)
         self.replicas: list[ReplicaSlot] = []
         self.metrics: dict[str, Any] = {}
 

@@ -124,7 +124,34 @@ def test_manager_hook_fires_every_n_epochs(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
+    """Restore onto a (1, 1) mesh of a one-rank gloo group: every leaf of
+    the parameters comes back a DTensor placed by ``param_specs``, equal to
+    the saved leaf; a spec that splits a dim over mesh dims out of the
+    mesh's order has no DTensor layout and raises.  (Several ranks:
+    ``tests/test_torch_dist.py``.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import P, param_specs
+    from repro_torch.launch.mesh import make_mesh
+
     _, tree = _states()
     ckpt.save(tmp_path / "c", tree)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ckpt.restore(tmp_path / "c", tree, mesh=object())
+    params = tree[0]
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        specs = (param_specs(mesh, params),
+                 tree_map(lambda leaf: None, tree[1]))
+        got, manifest = ckpt.restore(tmp_path / "c", tree, mesh=mesh,
+                                     specs=specs)
+        for a, b in zip(tree_leaves(got[0]), tree_leaves(params)):
+            assert isinstance(a, DTensor) and torch.equal(a.full_tensor(), b)
+        for a, b in zip(tree_leaves(got[1]), tree_leaves(tree[1])):
+            assert not isinstance(a, DTensor) and torch.equal(a, b)
+        bad = (tree_map(lambda leaf: P(("model", "data")), params),
+               specs[1])
+        with pytest.raises(ValueError, match="mesh order"):
+            ckpt.restore(tmp_path / "c", tree, mesh=mesh, specs=bad)
+    finally:
+        dist.destroy_process_group()

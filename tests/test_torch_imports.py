@@ -1,5 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every module in it
-(``repro_torch.benchmarks`` and ``repro_torch.launch.elastic`` among them)
+(``repro_torch.benchmarks``, ``repro_torch.launch.elastic`` and the
+multi-device modules ``dist.{sharding,pipeline,collectives}``,
+``launch.mesh`` and ``models.decode_sharded`` among them)
 loads neither ``jax``, anything of the JAX package ``repro``, nor the
 reference's ``benchmarks`` folder, and no source file of the port,
 ``chip_smoke.py`` or the port's examples (``examples/torch_*.py``) imports
@@ -40,7 +42,10 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert "repro_torch.kernels.ops" in mods and len(mods) > 30
     assert {"repro_torch.benchmarks", "repro_torch.benchmarks.protocol_micro",
             "repro_torch.benchmarks.run",
-            "repro_torch.launch.elastic"} <= set(mods)
+            "repro_torch.launch.elastic", "repro_torch.dist.sharding",
+            "repro_torch.dist.pipeline", "repro_torch.dist.collectives",
+            "repro_torch.launch.mesh",
+            "repro_torch.models.decode_sharded"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

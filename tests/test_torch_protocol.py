@@ -223,9 +223,16 @@ def test_elastic_cli_prints_the_reference_line(capsys):
     assert mine.startswith("elastic protocol rescale 4->3->4: OK")
 
 
-def test_elastic_checkpoint_reshard_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        elastic.main([])
+def test_elastic_checkpoint_reshard_is_not_ported(capfd):
+    """The checkpoint reshard, which earlier slices left out, runs: on two
+    gloo ranks of its own, from a 1x2 mesh onto 2x1, with the reference's
+    line; meshes of different sizes are refused.  (The reference's 2x4
+    reshards: ``tests/test_torch_dist.py``.)"""
+    assert elastic.main(["--from-mesh", "1x2", "--to-mesh", "2x1"]) == 0
+    assert capfd.readouterr().out == ("elastic reshard (1, 2) -> (2, 1): "
+                                       "OK (epoch color 3)\n")
+    with pytest.raises(ValueError, match="differ in size"):
+        elastic.main(["--from-mesh", "2x4", "--to-mesh", "3x2"])
 
 
 # --------------------------------------------------------------------------

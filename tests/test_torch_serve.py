@@ -82,8 +82,8 @@ def test_real_model_digest_matches_jax(servers, arch, monkeypatch):
 
     real_decode = serve_step.decode_step
 
-    def t_recording(cfg_, params, cache, tokens):
-        logits, cache = real_decode(cfg_, params, cache, tokens)
+    def t_recording(cfg_, params, cache, tokens, **kw):
+        logits, cache = real_decode(cfg_, params, cache, tokens, **kw)
         top2 = torch.topk(logits[:, -1].float(), 2, dim=-1).values
         ticks_t.append({"tokens": logits[:, -1].argmax(-1).tolist(),
                         "margin": (top2[:, 0] - top2[:, 1]).tolist()})

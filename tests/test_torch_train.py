@@ -177,13 +177,32 @@ def test_synthetic_batches_match_jax(prefix_len):
                 np.asarray(w["prefix_embeds"], np.float32))
 
 
-def test_shard_batch_places_on_a_device_and_refuses_a_mesh():
+def test_shard_batch_places_on_a_device_and_refuses_a_mesh(tmp_path):
+    """Off a mesh: tensors on the device.  On the (1, 1) mesh of a
+    one-rank gloo group: DTensors laid out by ``batch_specs`` whose
+    ``full_tensor()`` is the batch.  A mesh the process group cannot fill
+    is refused.  (Several ranks: ``tests/test_torch_dist.py``.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_mesh
+
     batch = next(synthetic_batches(50, 2, 8))
     placed = shard_batch(None, batch, device="cpu")
     assert placed["tokens"].dtype == torch.int32
     np.testing.assert_array_equal(placed["labels"].numpy(), batch["labels"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        shard_batch(object(), batch)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        on_mesh = shard_batch(mesh, batch)
+        for k, v in on_mesh.items():
+            assert isinstance(v, DTensor)
+            assert [str(p) for p in v.placements] == ["S(0)", "R"]
+            np.testing.assert_array_equal(v.full_tensor().numpy(), batch[k])
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            make_mesh((2, 2), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
 
 
 def _setup(**opt_kw):
