@@ -34,12 +34,18 @@ Phases, each printed as one JSON object on its own line:
               and its backward kernel are checked against
               ``ref.attention_lse`` / ``ref.attention_backward`` (causal,
               full, T < S, a window, ragged, every head dim, G = 1 to 16,
-              the model's transposed views; each gradient at the
-              tolerance of its largest entry), and K2's forward and
+              the model's transposed views, recurrentgemma-9b's training
+              shape; each gradient at the tolerance of its largest entry;
+              each case's head splits printed), and K2's forward and
               backward are timed at qwen3-0.6b's training shape (B=8,
               T=1024), the backward beside SDPA's backward, and at the
-              training shapes of recurrentgemma-9b (hd 256, MQA 16/1) and
-              qwen3-moe-235b-a22b.  The backward kernels of K5, K3 and K4,
+              training shapes of recurrentgemma-9b (hd 256, MQA 16/1: 8
+              head splits) and qwen3-moe-235b-a22b, each backward first
+              run twice (``torch.equal``) and traced (no CUDA-core
+              kernel; the dK/dV sum where the heads are split), and at
+              recurrentgemma-9b's shape against every head split and
+              SDPA's backward in turns (``k2_bwd_splits``).  The
+              backward kernels of K5, K3 and K4,
               through the autograd Functions training calls, are checked
               against the plain backwards ``ref.*_backward`` (K5_BWD_CASES,
               K3_BWD_CASES, K4_BWD_CASES: the training shapes, ragged
@@ -47,7 +53,10 @@ Phases, each printed as one JSON object on its own line:
               B = 3, rows none / partial / zero with dead rows and empty
               experts exactly zero, the decode step, an S0 that requires
               grad, a non-zero gradient of the final state; each gradient
-              at its tolerance of its largest entry) and timed at the
+              at its tolerance of its largest entry; each K3 case's route,
+              ``wgmma`` / ``tc`` / ``f32``, as ``K3_BWD_ROUTES`` says;
+              K3's backward at the training shapes run twice,
+              ``torch.equal``, and on ``wgmma``) and timed at the
               training shapes (B=8, T=1024) of recurrentgemma-9b,
               qwen3-moe-235b-a22b and rwkv6-3b beside the plain backward
               (and, for K3, two ``torch.bmm`` calls; for K5,
@@ -66,7 +75,10 @@ Phases, each printed as one JSON object on its own line:
               Adafactor, the loss in 4 sequence chunks;
               qwen3-moe-235b-a22b at 3 of 94 layers: K3 18 / 9 and K2 6 /
               3, Adafactor) and
-              each backward's CUDA launches in the traced step; ms per
+              each backward's CUDA launches in the traced step (K2's
+              backward 4 a call at recurrentgemma-9b's 8 head splits, 3
+              elsewhere), no CUDA-core kernel of K2's backward and every
+              K3 backward on ``wgmma``; ms per
               step, peak memory, each kernel's share of one traced step
               and PyTorch's bf16 / float32 fills and adds in it
               (``fill_add``); then, for qwen3-0.6b, the epoch color, the
@@ -220,7 +232,9 @@ K3_CASES = [(E, C, D, F_, False, None) for _, E, C, D, F_ in K3_PATHS] + [
 
 # K2's backward, (B, H, Hkv, T, S, hd, causal, window): causal T = S, full,
 # T < S, a window of 2048 at T = S = 4096 (MQA), ragged T and S, every head
-# dim, G = 1, 2, 4, 8 and 16
+# dim, G = 1, 2, 4, 8 and 16; recurrentgemma-9b's training shape itself (8
+# head splits in bf16), 16 splits with a ragged S at hd 256, and hd 160
+# with a window (4 splits)
 K2_BWD_CASES = [
     (2, 16, 8, 1024, 1024, 128, True, 0),
     (2, 16, 8, 1024, 1024, 128, False, 0),
@@ -228,7 +242,10 @@ K2_BWD_CASES = [
     (1, 16, 1, 4096, 4096, 256, True, 2048),
     (2, 8, 8, 1000, 1000, 64, True, 0), (2, 8, 4, 77, 300, 160, True, 0),
     (2, 32, 8, 1024, 1024, 160, True, 0), (2, 4, 1, 100, 130, 32, False, 0),
-    (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0)]
+    (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0),
+    (8, 16, 1, 1024, 1024, 256, True, 2048),
+    (2, 16, 1, 130, 300, 256, False, 0),
+    (2, 32, 8, 1000, 1000, 160, True, 300)]
 
 # The backward kernels' checks, through the autograd Functions training
 # calls, against the plain backwards (``ref.*_backward``).
@@ -242,12 +259,20 @@ K5_BWD_CASES = [(8, 1024, 4096, None, False), (3, 600, 4099, None, True),
                 (1, 257, 4096, None, False), (1, 4097, 4096, None, False),
                 (1, 4096, 4096, 1e-4, False), (1, 4095, 4096, 0.999, False)]
 # K3: (E, C, D, F, strided x, rows): the two training shapes, then C = 1,
-# 13, 37 and 130 with ragged D and F, and rows none, partial and zero
+# 13, 37 and 130 with ragged D and F, and rows none, partial and zero;
+# rows that are no multiple of 64 with empty experts ("odd"), and a strided
+# but 16-byte aligned x, which takes the wgmma route (K3_BWD_ROUTES)
 K3_BWD_CASES = [(128, 640, 4096, 1536, False, "partial"),
                 (128, 640, 1536, 4096, False, None),
                 (3, 1, 64, 8, False, None), (5, 13, 300, 129, False, None),
                 (6, 37, 1000, 200, True, "zero"),
-                (4, 130, 520, 259, True, "partial")]
+                (4, 130, 520, 259, True, "partial"),
+                (8, 640, 512, 768, False, "odd"),
+                (6, 37, 1000, 200, True, "partial")]
+# the bf16 kernel each case takes (moe_gmm._route): TMA needs 16-byte
+# aligned rows, so F = 129 and 259 take the mma.sync kernel
+K3_BWD_ROUTES = ["wgmma", "wgmma", "wgmma", "tc", "wgmma", "tc", "wgmma",
+                 "wgmma"]
 # K4: (B, H, T, M, S0, dS_T): the training shape (no S0, no final-state
 # gradient), ragged T, B = 3, the decode step, heads under 64, an S0 that
 # requires grad and a non-zero gradient of the final state
@@ -466,8 +491,10 @@ def kernel_phase(torch, dev) -> list[dict]:
             ids = torch.randn((4, E), generator=g, device=dev).topk(8).indices
             n = torch.bincount(ids.reshape(-1), minlength=E).clamp(max=C)
             return n.to(torch.int32)
-        n = ([0] * E if kind == "zero" else
-             [(0, 1, C - 1, C, C // 2, 3, C // 3, 2)[e % 8] for e in range(E)])
+        pattern = {"partial": (0, 1, C - 1, C, C // 2, 3, C // 3, 2),
+                   "odd": (0, 100, C, 1, 63, 65, 0, C - 1)}
+        n = [0] * E if kind == "zero" else \
+            [pattern[kind][e % 8] for e in range(E)]
         return torch.tensor(n, dtype=torch.int32, device=dev)
 
     def k3_inputs(E, C, D, F_, dtype, strided=False):
@@ -582,7 +609,9 @@ def kernel_phase(torch, dev) -> list[dict]:
             errs = [_scaled_err(g, w) for g, w in zip(got, want)]
             lse_err = _err(got_lse, lse)
             checks.append({"kernel": "flash_attention_bwd", "dtype": dt,
-                           "case": case, "grad_err_of_scale": errs,
+                           "case": case, "splits": k2._dkdv_splits(
+                               B, Hkv, S, H, hd, dtype),
+                           "grad_err_of_scale": errs,
                            "lse_max_abs_err": lse_err, "tol": tol,
                            "ok": max(errs) <= tol and lse_err <= tol})
             need(checks[-1]["ok"], f"flash_attention_bwd {dt} {case}: "
@@ -634,6 +663,8 @@ def kernel_phase(torch, dev) -> list[dict]:
                        "tol": tol, "ok": max(errs) <= tol})
         need(checks[-1]["ok"], f"{name} {case}: errors {errs}")
 
+    from repro_torch.kernels import moe_gmm as k3
+
     def leaf(t):
         return t.detach().requires_grad_(True)
 
@@ -650,14 +681,20 @@ def kernel_phase(torch, dev) -> list[dict]:
         del a, b, dh, got, want
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
-        for E, C, D, F_, strided, kind in K3_BWD_CASES:
+        for (E, C, D, F_, strided, kind), route in zip(K3_BWD_CASES,
+                                                       K3_BWD_ROUTES):
             x, w = (leaf(t) for t in k3_inputs(E, C, D, F_, dtype, strided))
             r = k3_rows(E, C, kind)
             dy = rand(E, C, F_, dtype=dtype)
+            ops.reset_launch_counts()
             got = torch.autograd.grad(ops.moe_gmm(x, w, r), (x, w), dy)
+            route = route if dt == "bfloat16" else "f32"
+            need(k3.bwd_routes == {k: int(k == route) for k in k3.bwd_routes},
+                 f"moe_gmm_bwd {E, C, D, F_, kind} {dt}: routes "
+                 f"{k3.bwd_routes}, want one {route}")
             grad_check("moe_gmm_bwd", {"dtype": dt, "E": E, "C": C, "D": D,
                                        "F": F_, "strided_x": strided,
-                                       "rows": kind},
+                                       "rows": kind, "route": route},
                        got, ref.moe_gmm_backward(x.detach(), w.detach(), dy,
                                                  r), TOLS[dt])
             if r is not None:       # dead rows and empty experts: zeros
@@ -860,7 +897,14 @@ def kernel_phase(torch, dev) -> list[dict]:
         out, lse = ref.attention_lse(q, k, v, window=window)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = sdpa(*leaves)
-        row("flash_attention_bwd", path, tshape,
+        splits = k2._dkdv_splits(B, Hkv, T, H, hd, bf)
+        # deterministic: no atomics, the splits' partials added in order
+        twice = [k2.backward(q, k, v, out, lse, dout, window=window)
+                 for _ in range(2)]
+        need(all(torch.equal(a, b) for a, b in zip(*twice)),
+             f"flash_attention_bwd {path}: two runs differ")
+        del twice
+        row("flash_attention_bwd", path, {**tshape, "splits": splits},
             (q, k, v, out, lse, dout),
             lambda *a, w=window: k2.backward(*a, window=w),
             lambda *a, w=window: ref.attention_backward(*a, window=w),
@@ -871,6 +915,34 @@ def kernel_phase(torch, dev) -> list[dict]:
             10 * pairs * H * hd, "bfloat16",
             "none: no Pallas backward; the reference takes jax.grad of "
             "src/repro/models/layers.py:51", scaled=True)
+        trace("flash_attention_bwd", path,
+              lambda: k2.backward(q, k, v, out, lse, dout, window=window))
+        names = [t["kernel"] for t in traces[-1]["kernels"]]
+        # bf16 runs on the tensor cores: no CUDA-core kernel, and the sum
+        # of the splits' partials exactly when there are splits
+        need(not any("_cc<" in n for n in names)
+             and any("bwd_dkdv_sum" in n for n in names) == (splits > 1),
+             f"flash_attention_bwd {path} (splits {splits}) ran {names}")
+        if splits > 1:
+            # every split of the group (the rule substituted by each) beside
+            # the rule's choice and SDPA's backward, in turns (forward,
+            # then backward), medians
+            sweep = {d: [] for d in range(1, H // Hkv + 1)
+                     if (H // Hkv) % d == 0}
+            sdpa_ms, rule = [], k2._dkdv_splits
+            try:
+                for order in (list(sweep), list(sweep)[::-1]):
+                    sdpa_ms.append(timed(lambda: torch.autograd.grad(
+                        sdpa_out, leaves, dout, retain_graph=True)))
+                    for d in order:
+                        k2._dkdv_splits = lambda *_, d=d: d
+                        sweep[d].append(timed(lambda: k2.backward(
+                            q, k, v, out, lse, dout, window=window)))
+            finally:
+                k2._dkdv_splits = rule
+            emit({"phase": "k2_bwd_splits", "path": path, "rule": splits,
+                  "ms": {d: statistics.median(t) for d, t in sweep.items()},
+                  "sdpa_backward_ms": statistics.median(sdpa_ms)})
         del q, k, v, dout, out, lse, leaves, sdpa_out, mask
 
     # all C rows of every expert (rows=None), then the serve
@@ -935,7 +1007,6 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     # the backward kernels at the training shapes (B=8, T=1024), each
     # beside its plain backward (``ref.*_backward``)
-    from repro_torch.kernels import moe_gmm as k3
     from repro_torch.kernels import rglru_scan as k5
     from repro_torch.kernels import rwkv_scan as k4
     no_pallas = ("none: no Pallas backward; the reference takes jax.grad of "
@@ -972,13 +1043,19 @@ def kernel_phase(torch, dev) -> list[dict]:
                                4096)):
         x, w = k3_inputs(E, C, D, F_, bf)
         dy = rand(E, C, F_, dtype=bf)
+        twice = [k3.backward(x, w, dy) for _ in range(2)]
+        need(all(torch.equal(a, b) for a, b in zip(*twice)),
+             f"moe_gmm_bwd {path} {D}: two runs differ")
+        del twice
+        ops.reset_launch_counts()
         row("moe_gmm", path, {"E": E, "C": C, "D": D, "F": F_,
                               "dtype": "bfloat16"}, (x, w, None),
             ops.moe_gmm, ref.moe_gmm, lambda x, w, r: torch.bmm(x, w),
             2 * (E * C * D + E * D * F_ + E * C * F_), 2 * E * C * D * F_,
             "bfloat16", "src/repro/kernels/moe_gmm.py:42", plain_reps=3)
         row("moe_gmm_bwd", path, {"E": E, "C": C, "D": D, "F": F_,
-                                  "dtype": "bfloat16"}, (x, w, dy),
+                                  "dtype": "bfloat16",
+                                  "route": k3._route(x, w, dy)}, (x, w, dy),
             k3.backward, ref.moe_gmm_backward,
             lambda x, w, dy: (torch.bmm(dy, w.transpose(1, 2)),
                               torch.bmm(x.transpose(1, 2), dy)),
@@ -986,8 +1063,11 @@ def kernel_phase(torch, dev) -> list[dict]:
             2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_),
             4 * E * C * D * F_, "bfloat16", no_pallas + "moe.py:76",
             scaled=True, plain_reps=3)
-        if D == 4096:
-            trace("moe_gmm_bwd", path, lambda: k3.backward(x, w, dy))
+        need(rows[-1]["shape"]["route"] == "wgmma" and k3.bwd_launches > 0
+             and k3.bwd_routes == {"wgmma": k3.bwd_launches, "tc": 0,
+                                   "f32": 0},
+             f"moe_gmm_bwd {path} {D}: routes {k3.bwd_routes}, want wgmma")
+        trace("moe_gmm_bwd", path, lambda: k3.backward(x, w, dy))
         del x, w, dy
 
     B, H, T, M = 8, 40, 1024, 64
@@ -1041,10 +1121,12 @@ def kernel_phase(torch, dev) -> list[dict]:
 TRAIN_STEPS = 10
 # The profiler's names of each kernel's CUDA launches; a name counts for
 # the first entry it matches, the backwards first.  A backward call is
-# BWD_CUDA_PER_CALL CUDA launches.
+# BWD_CUDA_PER_CALL CUDA launches, unless its train case says otherwise
+# ("cuda_per_call": K2's backward is four launches where its heads are
+# split, the fourth the dK/dV sum, bwd_dkdv_sum).
 CUDA_NAMES = {
     "flash_attention_bwd": ("bwd_dot", "bwd_dkdv", "bwd_dq"),
-    "moe_gmm_bwd": ("gmm_bwd_tc", "gmm_bwd_f32"),
+    "moe_gmm_bwd": ("gmm_bwd_wgmma", "gmm_bwd_tc", "gmm_bwd_f32"),
     "rwkv_scan_bwd": ("rwkv_bwd_",),
     "rglru_scan_bwd": ("rglru_bwd_",),
     "flash_attention": ("flash_attention_tc", "flash_attention_kernel"),
@@ -1087,6 +1169,8 @@ TRAIN_CASES = [
      "B": 8, "T": 1024, "one_batch": True, "chunked_ce": 4,
      "per_step": {"rglru_scan": 50, "rglru_scan_bwd": 26,
                   "flash_attention": 24, "flash_attention_bwd": 12},
+     # MQA: 128 dK/dV blocks, its 16 heads split in 8 (_dkdv_splits)
+     "cuda_per_call": {"flash_attention_bwd": 4},
      "parity": {"B": 2, "T": 256, "n_layers": 3,
                 "launches": {"rglru_scan": 4, "rglru_scan_bwd": 2,
                              "flash_attention": 2,
@@ -1135,6 +1219,7 @@ def train_phase(torch, dev, case) -> dict:
     from repro_torch.checkpoint import restore, save
     from repro_torch.core.torchstate import tree_leaves, tree_map
     from repro_torch.dist.compression import error_bound
+    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ops
     from repro_torch.models import init_params, loss_fn
     from repro_torch.train import (OptConfig, TrainState, shard_batch,
@@ -1219,7 +1304,7 @@ def train_phase(torch, dev, case) -> dict:
     ts = TrainState(cfg, opt, params)
     if case.get("checkpoints"):
         ts.replicate()                             # the epoch backup
-    losses, times, total, profiled = [], [], None, None
+    losses, times, total, profiled, routes = [], [], None, None, {}
     for i, batch in enumerate(batches, start=1):
         # step 2 is traced, and the next one if the profiler's window came
         # back empty (seen now and then on the H100); the traced step is
@@ -1238,6 +1323,7 @@ def train_phase(torch, dev, case) -> dict:
         expect(counts, per_step, f"step {i}")
         total = counts if total is None else {
             k: total[k] + n for k, n in counts.items()}
+        routes = {k: routes.get(k, 0) + n for k, n in gmm.bwd_routes.items()}
         if not traced:
             times.append((i, dt))
             continue
@@ -1282,6 +1368,7 @@ def train_phase(torch, dev, case) -> dict:
           "ms_per_step": [t for _, t in times],
           "traced_step": step_traced, "device_ms_traced_step": dev_us / 1e3,
           "kernel_shares": shares, "kernel_cuda_launches": cuda_launches,
+          "moe_gmm_bwd_routes": routes,
           "top_kernels": [(k[:80], t / 1e3, c) for k, t, c in
                           sorted(kernels, key=lambda x: -x[1])[:8]],
           "fill_add": fill_add,
@@ -1291,10 +1378,19 @@ def train_phase(torch, dev, case) -> dict:
     need(abs(losses[0] - plain_loss) <= 1e-2 * plain_loss,
          f"first loss {losses[0]} against the plain path's {plain_loss}")
     for name, per_call in BWD_CUDA_PER_CALL.items():
+        per_call = case.get("cuda_per_call", {}).get(name, per_call)
         want_cuda = per_step.get(name, 0) * per_call
         need(cuda_launches.get(name, 0) == want_cuda,
              f"{cuda_launches.get(name, 0)} CUDA launches of {name} in the "
              f"traced step, want {want_cuda}")
+    # bf16 on the tensor cores: no CUDA-core kernel of K2's backward, and
+    # every K3 backward on wgmma
+    need(not any("bwd_dkdv_cc" in k or "bwd_dq_cc" in k
+                  for k, _, _ in kernels), "a CUDA-core kernel of "
+         "flash_attention_bwd ran in the bf16 step")
+    need(routes["wgmma"] == per_step.get("moe_gmm_bwd", 0) * TRAIN_STEPS
+         and routes["tc"] == routes["f32"] == 0,
+         f"moe_gmm_bwd routes {routes} in {TRAIN_STEPS} steps")
     if not case.get("checkpoints"):
         del ts, batches, params
         return {f"{cfg.name} train": total}

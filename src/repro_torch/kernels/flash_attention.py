@@ -15,6 +15,7 @@ the gradient on the card is a kernel's too.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -24,7 +25,10 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 160, 256)  # instantiated in the CUDA sources
 
 launches = 0                    # forward launches since the last reset
-bwd_launches = 0                # backward calls (three CUDA launches each)
+bwd_launches = 0                # backward calls (three CUDA launches each,
+                                # four when _dkdv_splits gives more than 1)
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+DKDV_ROWS = 64                  # keys of one dk / dv block
 _fn = None
 _bwd_fn = None
 
@@ -45,8 +49,8 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                       + [ctypes.c_int] * 9
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
@@ -115,13 +119,33 @@ def forward(q, k, v, causal: bool, window: int, with_lse: bool):
     return out, lse
 
 
+def _dkdv_splits(B: int, Hkv: int, S: int, H: int, hd: int, dtype) -> int:
+    """How many blocks share the G = H / Hkv query heads of one kv head in
+    the dk / dv launch: 1 where the B * Hkv * ceil(S / 64) blocks of one
+    split fill two waves of the card's SMs (one block each), else the
+    least divisor of G whose blocks fill four, or G: under a causal mask
+    a block's work falls with its key tile, and more, shorter blocks even
+    the SMs out (``chip_smoke.py``'s ``k2_bwd_splits`` line times every
+    choice at recurrentgemma-9b's shape).  float32 takes 1 (its kernels
+    are parity checks).  ``hd`` does not change the rule: every bf16 head
+    dim takes it."""
+    G = H // Hkv
+    blocks = B * Hkv * math.ceil(S / DKDV_ROWS)
+    if dtype != torch.bfloat16 or blocks >= 2 * SMS:
+        return 1
+    return next(d for d in range(1, G + 1)
+                if G % d == 0 and (blocks * d >= 4 * SMS or d == G))
+
+
 def backward(q, k, v, out, lse, dout, *, causal: bool = True,
              window: int = 0):
     """K2's backward on the card: (dq (B,H,T,hd), dk, dv (B,Hkv,S,hd)) in
     q.dtype, from K2's inputs, its ``out`` and ``lse`` and the gradient
     ``dout`` of ``out``, each read through its strides.  Three CUDA
     launches: D = rowsum(dout * out), then dk / dv, then dq (the formula of
-    ``ref.attention_backward``)."""
+    ``ref.attention_backward``); where ``_dkdv_splits`` splits each group's
+    heads over several blocks, their float32 partial sums go to a
+    workspace and a fourth launch adds them in a fixed order."""
     global bwd_launches
     check(q, k, v, causal, window)
     B, H, T, hd = q.shape
@@ -140,13 +164,17 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
     dk = torch.empty((B, Hkv, S, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     D = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    splits = _dkdv_splits(B, Hkv, S, H, hd, q.dtype)
+    ws = None if splits == 1 else torch.empty(
+        (2, splits, B, Hkv, S, hd), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-                H, Hkv, T, S, hd, int(causal), window,
-                _strides(q, k, v, out, dout), _stream(q))
+                D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if ws is None else ws.data_ptr(), B, H, Hkv, T, S, hd,
+                int(causal), window, splits, _strides(q, k, v, out, dout),
+                _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
                            f"cudaError_t {rc}")

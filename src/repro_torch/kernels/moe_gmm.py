@@ -22,6 +22,10 @@ ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 launches = 0                    # forward launches since the last reset
 bwd_launches = 0                # backward calls (two CUDA launches each)
+# backward calls by kernel since the last reset: "wgmma" (TMA and wgmma,
+# bf16 with aligned operands), "tc" (mma.sync, the other bf16 calls) and
+# "f32" (CUDA cores); see ``_route``
+bwd_routes = {"wgmma": 0, "tc": 0, "f32": 0}
 _fn = None
 _bwd_fn = None
 
@@ -42,7 +46,7 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load("moe_gmm_bwd").repro_moe_gmm_bwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -98,13 +102,29 @@ def forward(x, w, rows=None):
     return y
 
 
+def _route(x, w, dy) -> str:
+    """The backward kernel a call takes, chosen before the launch from the
+    operands alone: "wgmma" for bf16 whose x, w and dy TMA can read (each
+    base and each stride but the unit last one a multiple of 16 bytes,
+    rows that do not overlap), "tc" for the other bf16 calls, "f32" for
+    float32."""
+    if x.dtype != torch.bfloat16:
+        return "f32"
+    for t in (x, w, dy):
+        se, sr, sc = t.stride()
+        if (t.data_ptr() % 16 or sc != 1 or (2 * sr) % 16 or (2 * se) % 16
+                or sr < t.shape[2] or se < t.shape[1] * sr):
+            return "tc"
+    return "wgmma"
+
+
 def backward(x, w, dy, rows=None):
     """K3's backward on the card: (dx (E,C,D) in x.dtype, dw (E,D,F) in
     w.dtype) from K3's inputs and the gradient ``dy`` (E,C,F) of its
     output, each read through its strides (unit stride on the last dim).
     dx = dy w^T with rows c >= rows[e] zeros; dw = x^T dy over the rows
     c < rows[e] only; both summed in float32 inside a block.  Two CUDA
-    launches."""
+    launches, of the kernel ``_route`` picks."""
     global bwd_launches
     check(x, w, rows)
     E, C, D = x.shape
@@ -118,15 +138,18 @@ def backward(x, w, dy, rows=None):
     dw = torch.empty((E, D, F), dtype=w.dtype, device=x.device)
     st = (ctypes.c_longlong * 10)(*(t.stride(i) for t in (x, w, dy, dx, dw)
                                     for i in range(2)))
+    route = _route(x, w, dy)
     fn = _bwd_kernel()
     with torch.cuda.device(x.device):
-        rc = fn(ELEM_BYTES[x.dtype], x.data_ptr(), w.data_ptr(),
-                dy.data_ptr(), None if rows is None else rows.data_ptr(),
-                dx.data_ptr(), dw.data_ptr(), E, C, D, F, st, _stream(x))
+        rc = fn(ELEM_BYTES[x.dtype], int(route == "wgmma"), x.data_ptr(),
+                w.data_ptr(), dy.data_ptr(),
+                None if rows is None else rows.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), E, C, D, F, st, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"moe_gmm backward launch failed: "
+        raise RuntimeError(f"moe_gmm backward launch failed ({route}): "
                            f"cudaError_t {rc}")
     bwd_launches += 1
+    bwd_routes[route] += 1
     return dx, dw
 
 

@@ -75,7 +75,8 @@ def launch_counts() -> dict[str, int]:
     """Wrapper calls per kernel since the last ``reset_launch_counts``;
     ``<name>_bwd`` counts the backward calls of each kernel in
     ``BACKWARDS`` apart from its forward (K2's backward is three CUDA
-    launches, K3's two, K4's four, K5's one)."""
+    launches, or four with its heads split; K3's two, K4's four, K5's
+    one).  ``moe_gmm.bwd_routes`` splits K3's backward calls by kernel."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     for name in BACKWARDS:
         counts[f"{name}_bwd"] = KERNELS[name].bwd_launches
@@ -87,3 +88,5 @@ def reset_launch_counts() -> None:
         mod.launches = 0
         if name in BACKWARDS:
             mod.bwd_launches = 0
+    for route in _gmm.bwd_routes:
+        _gmm.bwd_routes[route] = 0

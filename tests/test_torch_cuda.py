@@ -329,20 +329,26 @@ def test_cuda_rglru_scan_backward_matches_plain(cuda, B, T, D, a_val,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows", [None, "partial", "zero"])
+@pytest.mark.parametrize("rows", [None, "partial", "zero", "odd"])
 @pytest.mark.parametrize("E,C,D,F,strided", [
     (8, 640, 520, 260, False), (3, 1, 64, 8, False), (6, 37, 1000, 200, True),
-    (4, 130, 520, 259, True), (5, 13, 300, 129, False)])
+    (4, 130, 520, 259, True), (5, 13, 300, 129, False),
+    (8, 640, 512, 768, False)])
 def test_cuda_moe_gmm_backward_matches_plain(cuda, dtype, rows, E, C, D, F,
                                              strided):
     """K3's backward against autograd of ``ref.moe_gmm`` and against the
     plain backward ``ref.moe_gmm_backward``: C = 1, 13, 37,
     130 and the training capacity of 640, ragged D and F, x read through a
     row stride and w as one layer's view of a stacked leaf, live rows
-    None, partial (0, 1, C - 1, C, ...) and none; dx must be exact zeros
-    past each expert's rows and dw zeros for an expert without one.  Each
-    gradient at 2e-3 (float32) or 2e-2 (bf16) of its largest entry: the
-    same float32 sums in another order, rounded once to bf16."""
+    None, partial (0, 1, C - 1, C, ...), none and "odd" (no multiple of
+    64, empty experts among them); dx must be exact zeros past each
+    expert's rows and dw zeros for an expert without one.  The call takes
+    the route ``moe_gmm._route`` names: wgmma in bf16 where every row is a
+    multiple of 16 bytes (D and F multiples of 8), the mma.sync kernel
+    else, CUDA cores in float32.  Each gradient at 2e-3 (float32) or 2e-2
+    (bf16) of its largest entry: the same float32 sums in another order,
+    rounded once to bf16."""
+    from repro_torch.kernels import moe_gmm as k3
     g = torch.Generator(cuda).manual_seed(0)
     dt = getattr(torch, dtype)
     x0 = torch.randn((E, C, D + 8 if strided else D), generator=g,
@@ -351,7 +357,9 @@ def test_cuda_moe_gmm_backward_matches_plain(cuda, dtype, rows, E, C, D, F,
     dy = torch.randn((E, C, F), generator=g, device=cuda).to(dt)
     n = {None: None, "zero": [0] * E,
          "partial": [(0, 1, C - 1, C, C // 2, 3, C // 3, 2)[e % 8]
-                     for e in range(E)]}[rows]
+                     for e in range(E)],
+         "odd": [min(C, (0, 100, C, 1, 63, 65, 0, C - 1)[e % 8])
+                 for e in range(E)]}[rows]
     r = None if n is None else torch.tensor(n, dtype=torch.int32,
                                             device=cuda)
     x, w = (t.detach().requires_grad_(True) for t in (x0, w0))
@@ -360,6 +368,9 @@ def test_cuda_moe_gmm_backward_matches_plain(cuda, dtype, rows, E, C, D, F,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["moe_gmm"], counts["moe_gmm_bwd"]) == (1, 1)
+    route = "f32" if dtype == "float32" else \
+        "wgmma" if D % 8 == 0 and F % 8 == 0 else "tc"
+    assert k3.bwd_routes == {k: int(k == route) for k in k3.bwd_routes}
     if r is not None:
         live = torch.arange(C, device=cuda)[None, :] < r[:, None]
         assert not got[0].masked_select(~live[..., None]).any()
@@ -434,7 +445,10 @@ K2_BWD_CASES = [
     (1, 16, 1, 4096, 4096, 256, True, 2048),
     (2, 8, 8, 1000, 1000, 64, True, 0), (2, 8, 4, 77, 300, 160, True, 0),
     (2, 32, 8, 1024, 1024, 160, True, 0), (2, 4, 1, 100, 130, 32, False, 0),
-    (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0)]
+    (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0),
+    (8, 16, 1, 1024, 1024, 256, True, 2048),   # recurrentgemma-9b training
+    (2, 16, 1, 130, 300, 256, False, 0),       # 16 splits, ragged S
+    (2, 32, 8, 1000, 1000, 160, True, 300)]    # hd 160 with a window
 
 
 @pytest.mark.cuda
@@ -469,6 +483,75 @@ def test_cuda_flash_attention_backward_matches_plain(cuda, dtype, B, H, Hkv,
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=TOLS[dtype] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,S,hd,causal,window,splits", [
+    (2, 16, 1, 130, 300, 256, False, 0, d) for d in (1, 2, 4, 8, 16)] + [
+    (2, 16, 1, 200, 200, 128, True, 50, d) for d in (1, 4, 16)] + [
+    (1, 16, 2, 100, 100, 160, True, 0, d) for d in (1, 2, 8)])
+def test_cuda_flash_attention_backward_any_split_matches_plain(
+        cuda, monkeypatch, B, H, Hkv, T, S, hd, causal, window, splits):
+    """K2's backward in bf16 with a group's heads split over any divisor
+    of G blocks (the rule ``_dkdv_splits`` substituted; the wide kernels
+    at hd 160 / 256, the 4-warp ones at 128; G = 16 and 8), each gradient
+    at 2e-2 of its largest entry."""
+    from repro_torch.kernels import flash_attention as k2
+    monkeypatch.setattr(k2, "_dkdv_splits", lambda *_: splits)
+    g = torch.Generator(cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    q, dout = rand(B, H, T, hd), rand(B, H, T, hd)
+    k, v = rand(B, Hkv, S, hd), rand(B, Hkv, S, hd)
+    out, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+    got = k2.backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    want = ref.attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                  window=window)
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=TOLS["bfloat16"] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("flash_attention_bwd", (8, 16, 1, 1024, 256, 2048)),  # recurrentgemma
+    ("flash_attention_bwd", (8, 16, 8, 1024, 128, 0)),     # qwen3-0.6b
+    ("flash_attention_bwd", (8, 64, 4, 1024, 128, 0)),     # the MoE
+    ("moe_gmm_bwd", (128, 640, 4096, 1536)),               # gate / up
+    ("moe_gmm_bwd", (128, 640, 1536, 4096))])              # down
+def test_cuda_backward_kernels_are_deterministic_at_training_shapes(
+        cuda, kernel, shape):
+    """K2's and K3's backwards at the trained families' shapes, bf16: two
+    calls give the same bits (no atomics; K2's head splits are summed in a
+    fixed order), and K3 takes the wgmma route."""
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import moe_gmm as k3
+    g = torch.Generator(cuda).manual_seed(0)
+    bf = torch.bfloat16
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=cuda).to(bf)
+    if kernel == "flash_attention_bwd":
+        B, H, Hkv, T, hd, window = shape
+        q, k, v, dout = (rand(B, n, T, hd) for n in (H, Hkv, Hkv, H))
+        out, lse = ref.attention_lse(q, k, v, window=window)
+
+        def call():
+            return k2.backward(q, k, v, out, lse, dout, window=window)
+    else:
+        E, C, D, F = shape
+        x, w, dy = rand(E, C, D), rand(E, D, F), rand(E, C, F)
+        ops.reset_launch_counts()
+
+        def call():
+            return k3.backward(x, w, dy)
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+    if kernel == "moe_gmm_bwd":
+        assert k3.bwd_routes == {"wgmma": 2, "tc": 0, "f32": 0}
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
-"""The backward kernels' algorithms on the CPU.  The CUDA backwards of K3
-``moe_gmm``, K4 ``rwkv_scan`` and K5 ``rglru_scan`` (``csrc/*_bwd.cu``) run
-only on the card.  Their plain versions (``ref.*_backward``, explicit
+"""The backward kernels' algorithms on the CPU.  The CUDA backwards of K2
+``flash_attention``, K3 ``moe_gmm``, K4 ``rwkv_scan`` and K5
+``rglru_scan`` (``csrc/*_bwd.cu``) run only on the card.  Their plain versions (``ref.*_backward``, explicit
 formulas, the card's reference for each kernel) are held against autograd
 through the port's plain forward (``repro_torch.kernels.ref``) and against
 ``jax.vjp`` of the JAX package's oracle (``repro.kernels.ref``, as the JAX
@@ -248,6 +248,147 @@ def test_moe_gmm_plain_backward(E, C, D, F, kind, dtype):
               TOL)
     if rows is not None:
         assert not got[1][rows == 0].any()   # an empty expert: dw zeros
+
+
+def _gmm_bwd_wgmma_schedule(x, w, dy, rows, bm=128, bk=64):
+    """``csrc/moe_gmm_bwd.cu``'s wgmma kernel in float64: dx in tiles of
+    ``bm`` rows, a tile wholly past rows[e] zeros without a product, the
+    rows of a tile past rows[e] written as zeros, F in stages of ``bk``;
+    dw over ceil(rows[e] / bk) stages of ``bk`` rows of C, the last one's
+    rows c >= rows[e] zeroed in both x and dy before its product."""
+    x, w, dy = (torch.as_tensor(t, dtype=torch.float64) for t in (x, w, dy))
+    E, C, D = x.shape
+    F = w.shape[2]
+    dx = torch.zeros((E, C, D), dtype=torch.float64)
+    dw = torch.zeros((E, D, F), dtype=torch.float64)
+    for e in range(E):
+        nv = C if rows is None else min(max(int(rows[e]), 0), C)
+        for m0 in range(0, min(nv, C), bm):
+            acc = torch.zeros((min(bm, C - m0), D), dtype=torch.float64)
+            for k0 in range(0, F, bk):
+                acc += dy[e, m0:m0 + bm, k0:k0 + bk] @ w[e, :, k0:k0 + bk].T
+            acc[max(nv - m0, 0):] = 0
+            dx[e, m0:m0 + bm] = acc
+        for k0 in range(0, nv, bk):
+            xs, ds = x[e, k0:k0 + bk].clone(), dy[e, k0:k0 + bk].clone()
+            xs[nv - k0:] = 0
+            ds[nv - k0:] = 0
+            dw[e] += xs.T @ ds
+    return dx, dw
+
+
+@pytest.mark.parametrize("E,C,D,F", [(3, 1, 24, 8), (4, 37, 40, 19),
+                                     (2, 130, 33, 70), (8, 200, 16, 24)])
+@pytest.mark.parametrize("kind", [None, "partial", "zero", "odd"])
+def test_moe_gmm_wgmma_backward_schedule(E, C, D, F, kind):
+    """K3's backward on wgmma: 128-row tiles of dx and 64-deep stages, the
+    last dw stage's dead rows zeroed in shared memory; C = 1, 37, 130 and
+    200 (ragged against both), rows None, 0, 1, C - 1 and C by expert,
+    none, and "odd" counts (65, 100, 63, 130, ... cut at C) that end
+    inside a stage."""
+    x, w, dy = seeded(36, E, C, D), seeded(37, E, D, F), seeded(38, E, C, F)
+    pattern = {"partial": (0, 1, C - 1, C),
+               "odd": (65, 100, 0, 63, 130, 1, 199, 64)}
+    rows = None if kind is None else np.array(
+        [0] * E if kind == "zero" else
+        [min(C, pattern[kind][e % len(pattern[kind])]) for e in range(E)],
+        np.int32)
+    got = _gmm_bwd_wgmma_schedule(x, w, dy, rows)
+    r = None if rows is None else torch.from_numpy(rows)
+    close(got, autograd(lambda a, b: ref.moe_gmm(a, b, r), (x, w), (dy,)),
+          TOL)
+    live = np.ones((E, C), bool) if rows is None else \
+        np.arange(C)[None, :] < rows[:, None]
+
+    def masked(a, b):
+        return jnp.where(live[..., None], jref.moe_gmm(a, b), 0.0)
+    close(got, jax_vjp(masked, (x, w), (dy,)), TOL)
+    close(got, ref.moe_gmm_backward(*(torch.tensor(t) for t in (x, w, dy)),
+                                    r), TOL)
+    if rows is not None:                  # dead rows pass no gradient
+        assert not got[0].numpy()[~live].any()
+        assert not got[1].numpy()[rows == 0].any()
+
+
+# ---------------------------------------------------------------------------
+#  K2: dK / dV with a group's query heads split across blocks
+# ---------------------------------------------------------------------------
+def _attn_bwd_split_schedule(q, k, v, dout, causal, window, splits,
+                             tile=64):
+    """``csrc/flash_attention_bwd.cu``'s (b), (s) and (c) in float64: a
+    dK/dV block owns ``tile`` keys of one kv head and split z's G / splits
+    query heads, and sums dS^T q and P^T dout over those heads and the
+    query tiles of ``tile`` rows; the splits' partials are then added in
+    order z = 0, 1, ..; dq sums dS k over key tiles.  P is recomputed from
+    the logsumexp and masked entries are exactly 0."""
+    q, k, v, dout = (torch.as_tensor(t, dtype=torch.float64)
+                     for t in (q, k, v, dout))
+    B, H, T, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5
+    qi, kj = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    vis = torch.ones((T, S), dtype=torch.bool)
+    if causal:
+        vis &= kj <= qi + S - T
+    if window:
+        vis &= kj > qi + S - T - window
+    kf, vf = k[:, torch.arange(H) // G], v[:, torch.arange(H) // G]
+    s = (q @ kf.transpose(-1, -2) * scale).masked_fill(~vis, -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    p = torch.where(vis, p, 0.0)
+    D = (dout * (p @ vf)).sum(-1, keepdim=True)
+    ds = p * (dout @ vf.transpose(-1, -2) - D)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, tile):
+        dq += ds[..., k0:k0 + tile] @ kf[:, :, k0:k0 + tile] * scale
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for kvh in range(Hkv):
+            for k0 in range(0, S, tile):
+                parts = []
+                for z in range(splits):
+                    pk = torch.zeros_like(k[b, kvh, k0:k0 + tile])
+                    pv = torch.zeros_like(pk)
+                    for h in range(kvh * G + z * G // splits,
+                                   kvh * G + (z + 1) * G // splits):
+                        for q0 in range(0, T, tile):
+                            rq = slice(q0, q0 + tile)
+                            pk += ds[b, h, rq, k0:k0 + tile].T @ q[b, h, rq]
+                            pv += p[b, h, rq, k0:k0 + tile].T @ dout[b, h, rq]
+                    parts.append((pk * scale, pv))
+                for pk, pv in parts:
+                    dk[b, kvh, k0:k0 + tile] += pk
+                    dv[b, kvh, k0:k0 + tile] += pv
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,causal,window,splits", [
+    (2, 8, 2, 130, 130, True, 0, 2), (1, 8, 1, 70, 150, True, 0, 4),
+    (1, 8, 1, 70, 150, True, 0, 8), (2, 4, 1, 100, 100, True, 40, 2),
+    (1, 6, 2, 50, 90, False, 0, 3), (1, 4, 1, 64, 64, True, 0, 1)])
+def test_flash_attention_backward_split_schedule(B, H, Hkv, T, S, causal,
+                                                 window, splits):
+    """K2's backward with G / splits heads a dK/dV block and the partials
+    summed in order: ragged T and S against the 64-key and 64-query
+    tiles, T < S, a window, full attention, GQA and MQA, 1 to G splits;
+    held against ``ref.attention_backward`` (on ``ref.attention_lse``'s
+    out and lse), autograd of ``ref.attention`` and, without a window,
+    ``jax.vjp`` of the JAX oracle."""
+    hd = 32
+    q, dout = seeded(40, B, H, T, hd), seeded(41, B, H, T, hd)
+    k, v = seeded(42, B, Hkv, S, hd), seeded(43, B, Hkv, S, hd)
+    got = _attn_bwd_split_schedule(q, k, v, dout, causal, window, splits)
+    tq, tk, tv, tdo = (torch.tensor(t, dtype=torch.float32)
+                       for t in (q, k, v, dout))
+    out, lse = ref.attention_lse(tq, tk, tv, causal=causal, window=window)
+    close(got, ref.attention_backward(tq, tk, tv, out, lse, tdo,
+                                      causal=causal, window=window), TOL)
+    close(got, autograd(lambda a, b, c: ref.attention(
+        a, b, c, causal=causal, window=window), (q, k, v), (dout,)), TOL)
+    if not window:
+        close(got, jax_vjp(lambda a, b, c: jref.attention(
+            a, b, c, causal=causal), (q, k, v), (dout,)), TOL)
 
 
 # ---------------------------------------------------------------------------
