@@ -35,16 +35,18 @@ Phases, each printed as one JSON object on its own line:
               ``ref.attention_lse`` / ``ref.attention_backward`` (causal,
               full, T < S, a window, ragged, every head dim, G = 1 to 16,
               the model's transposed views, recurrentgemma-9b's training
-              shape; each gradient at the tolerance of its largest entry;
-              each case's head splits printed), and K2's forward and
+              shape, an unaligned q; each gradient at the tolerance of its
+              largest entry; each case on the kernels ``K2_BWD_ROUTES``
+              names, its head splits printed), and K2's forward and
               backward are timed at qwen3-0.6b's training shape (B=8,
               T=1024), the backward beside SDPA's backward, and at the
               training shapes of recurrentgemma-9b (hd 256, MQA 16/1: 8
               head splits) and qwen3-moe-235b-a22b, each backward first
-              run twice (``torch.equal``) and traced (no CUDA-core
-              kernel; the dK/dV sum where the heads are split), and at
-              recurrentgemma-9b's shape against every head split and
-              SDPA's backward in turns (``k2_bwd_splits``).  The
+              run twice (``torch.equal``) and traced (only its route's
+              kernels: at hd 128 the wgmma ones; the dK/dV sum where the
+              heads are split), and at recurrentgemma-9b's and the MoE's
+              shapes against every head split and SDPA's backward in
+              turns (``k2_bwd_splits``).  The
               backward kernels of K5, K3 and K4,
               through the autograd Functions training calls, are checked
               against the plain backwards ``ref.*_backward`` (K5_BWD_CASES,
@@ -54,9 +56,12 @@ Phases, each printed as one JSON object on its own line:
               experts exactly zero, the decode step, an S0 that requires
               grad, a non-zero gradient of the final state; each gradient
               at its tolerance of its largest entry; each K3 case's route,
-              ``wgmma`` / ``tc`` / ``f32``, as ``K3_BWD_ROUTES`` says;
+              ``wgmma`` / ``tc`` / ``f32``, as ``K3_BWD_ROUTES`` says,
+              and each K4 case's, ``tc`` in bf16 and ``cc`` in float32;
               K3's backward at the training shapes run twice,
-              ``torch.equal``, and on ``wgmma``) and timed at the
+              ``torch.equal``, and on ``wgmma``; K4's at rwkv6-3b's
+              twice, ``torch.equal``, and traced: only the tensor-core
+              kernels) and timed at the
               training shapes (B=8, T=1024) of recurrentgemma-9b,
               qwen3-moe-235b-a22b and rwkv6-3b beside the plain backward
               (and, for K3, two ``torch.bmm`` calls; for K5,
@@ -77,8 +82,11 @@ Phases, each printed as one JSON object on its own line:
               3, Adafactor) and
               each backward's CUDA launches in the traced step (K2's
               backward 4 a call at recurrentgemma-9b's 8 head splits, 3
-              elsewhere), no CUDA-core kernel of K2's backward and every
-              K3 backward on ``wgmma``; ms per
+              elsewhere), no CUDA-core kernel of K2's backward, every
+              K3 backward on ``wgmma``, and K2's and K4's backwards on
+              the case's route (``bwd_routes``: K2 on wgmma at
+              qwen3-0.6b and the MoE, wide at recurrentgemma-9b; K4 on
+              the tensor cores), every call and every traced launch; ms per
               step, peak memory, each kernel's share of one traced step
               and PyTorch's bf16 / float32 fills and adds in it
               (``fill_add``); then, for qwen3-0.6b, the epoch color, the
@@ -245,7 +253,43 @@ K2_BWD_CASES = [
     (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0),
     (8, 16, 1, 1024, 1024, 256, True, 2048),
     (2, 16, 1, 130, 300, 256, False, 0),
-    (2, 32, 8, 1000, 1000, 160, True, 300)]
+    (2, 32, 8, 1000, 1000, 160, True, 300),
+    # since the wgmma kernels: G = 16 (the MoE's), MQA with ragged S and a
+    # window, and q unaligned (2 bytes off), which must take the mma.sync
+    # kernels (K2_BWD_ROUTES)
+    (2, 64, 4, 1024, 1024, 128, True, 0),
+    (1, 16, 1, 300, 700, 128, True, 100),
+    (2, 16, 8, 1000, 1000, 128, True, -1)]
+# the bf16 kernels each case takes (flash_attention._bwd_route): wgmma at
+# hd 128 where TMA can read q, k, v and dout, tc at hd 32 / 64 and for the
+# unaligned q, wide at hd 160 / 256; float32 takes cc
+K2_BWD_ROUTES = ["wgmma", "wgmma", "wgmma", "wide", "tc", "wide", "wide",
+                 "tc", "wgmma", "wide", "wide", "wide", "wide", "wgmma",
+                 "wgmma", "tc"]
+
+# The kernels of each backward route the training shapes take, as the
+# profiler names them: K2's (flash_attention._bwd_route; bwd_dot and,
+# where the heads are split, bwd_dkdv_sum run on every route) and K4's
+# bf16 one (rwkv_scan._bwd_route; rwkv_bwd_scan and rwkv_bwd_du run on
+# both routes)
+K2_BWD_KERNELS = {"wgmma": ("bwd_dkdv_wgmma", "bwd_dq_wgmma"),
+                  "wide": ("bwd_dkdv_wide<", "bwd_dq_wide<")}
+K4_BWD_KERNELS = {"tc": ("rwkv_bwd_dstate_tc", "rwkv_bwd_chunk_tc")}
+# K2's backward route at each trained head dim, and the training paths
+# whose dK/dV head splits are swept (``k2_bwd_splits`` lines)
+K2_TRAIN_ROUTES = {128: "wgmma", 256: "wide"}
+K2_SPLIT_SWEEPS = ("recurrentgemma-9b train", "qwen3-moe-235b-a22b train")
+
+
+def _k2_bwd_kernel_ok(name: str, route: str) -> bool:
+    return any(p in name for p in ("bwd_dot<", "bwd_dkdv_sum")
+               + K2_BWD_KERNELS[route])
+
+
+def _k4_bwd_kernel_ok(name: str, route: str) -> bool:
+    return any(p in name for p in ("rwkv_bwd_scan", "rwkv_bwd_du")
+               + K4_BWD_KERNELS[route])
+
 
 # The backward kernels' checks, through the autograd Functions training
 # calls, against the plain backwards (``ref.*_backward``).
@@ -593,24 +637,32 @@ def kernel_phase(torch, dev) -> list[dict]:
         # ref.attention_backward on the same (q, k, v, out, lse, dout), the
         # inputs as the model's transposed (B, T, H, hd) views; each
         # gradient at the tolerance of its largest entry
-        for case in K2_BWD_CASES:
+        for case, route in zip(K2_BWD_CASES, K2_BWD_ROUTES):
             B, H, Hkv, T, S, hd, causal, window = case
-            q = rand(B, T, H, hd, dtype=dtype).transpose(1, 2)
+            unaligned = window < 0          # q 2 bytes off its buffer
+            window = max(window, 0)
+            q = rand(B, T, H, hd + unaligned, dtype=dtype)[
+                ..., int(unaligned):].transpose(1, 2)
             k, v = (rand(B, S, Hkv, hd, dtype=dtype).transpose(1, 2)
                     for _ in range(2))
             dout = rand(B, T, H, hd, dtype=dtype).transpose(1, 2)
             out, lse = ref.attention_lse(q, k, v, causal=causal,
                                          window=window)
             _, got_lse = k2.forward(q, k, v, causal, window, with_lse=True)
+            ops.reset_launch_counts()
             got = k2.backward(q, k, v, out, lse, dout, causal=causal,
                               window=window)
+            route = route if dt == "bfloat16" else "cc"
+            need(k2.bwd_routes == {r: int(r == route) for r in k2.bwd_routes},
+                 f"flash_attention_bwd {dt} {case}: routes {k2.bwd_routes}, "
+                 f"want one {route}")
             want = ref.attention_backward(q, k, v, out, lse, dout,
                                           causal=causal, window=window)
             errs = [_scaled_err(g, w) for g, w in zip(got, want)]
             lse_err = _err(got_lse, lse)
             checks.append({"kernel": "flash_attention_bwd", "dtype": dt,
-                           "case": case, "splits": k2._dkdv_splits(
-                               B, Hkv, S, H, hd, dtype),
+                           "case": case, "route": route,
+                           "splits": k2._bwd_plan(q, k, v, dout)[1],
                            "grad_err_of_scale": errs,
                            "lse_max_abs_err": lse_err, "tol": tol,
                            "ok": max(errs) <= tol and lse_err <= tol})
@@ -664,6 +716,7 @@ def kernel_phase(torch, dev) -> list[dict]:
         need(checks[-1]["ok"], f"{name} {case}: errors {errs}")
 
     from repro_torch.kernels import moe_gmm as k3
+    from repro_torch.kernels import rwkv_scan as k4
 
     def leaf(t):
         return t.detach().requires_grad_(True)
@@ -709,15 +762,20 @@ def kernel_phase(torch, dev) -> list[dict]:
                    for t in k4_inputs(B, H, T, M, dtype, with_s0)]
             do = rand(B, T, H, M).transpose(1, 2)
             dS = rand(B, H, M, M) * 0.5 if with_dst else None
+            ops.reset_launch_counts()
             o, S = ops.rwkv_scan(*ins)
             outs, cts = ([o, S], [do, dS]) if with_dst else ([o], [do])
             got = torch.autograd.grad(outs, [t for t in ins if t is not None],
                                       cts)
+            route = "tc" if dt == "bfloat16" else "cc"
+            need(k4.bwd_routes == {r: int(r == route) for r in k4.bwd_routes},
+                 f"rwkv_scan_bwd {dt} {B, H, T, M}: routes {k4.bwd_routes}, "
+                 f"want one {route}")
             with torch.no_grad():
                 want = ref.rwkv_scan_backward(*ins, do, dS)
             grad_check("rwkv_scan_bwd", {"dtype": dt, "B": B, "H": H,
                                          "T": T, "M": M, "S0": with_s0,
-                                         "dS_T": with_dst},
+                                         "dS_T": with_dst, "route": route},
                        got, [t for t in want if t is not None], TOLS[dt])
             del ins, do, dS, o, S, got, want
     torch.cuda.synchronize()
@@ -897,14 +955,17 @@ def kernel_phase(torch, dev) -> list[dict]:
         out, lse = ref.attention_lse(q, k, v, window=window)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = sdpa(*leaves)
-        splits = k2._dkdv_splits(B, Hkv, T, H, hd, bf)
+        route, splits = k2._bwd_plan(q, k, v, dout)
+        need(route == K2_TRAIN_ROUTES[hd], f"flash_attention_bwd {path}: "
+             f"route {route}, want {K2_TRAIN_ROUTES[hd]}")
         # deterministic: no atomics, the splits' partials added in order
         twice = [k2.backward(q, k, v, out, lse, dout, window=window)
                  for _ in range(2)]
         need(all(torch.equal(a, b) for a, b in zip(*twice)),
              f"flash_attention_bwd {path}: two runs differ")
         del twice
-        row("flash_attention_bwd", path, {**tshape, "splits": splits},
+        row("flash_attention_bwd", path, {**tshape, "splits": splits,
+                                          "route": route},
             (q, k, v, out, lse, dout),
             lambda *a, w=window: k2.backward(*a, window=w),
             lambda *a, w=window: ref.attention_backward(*a, window=w),
@@ -918,12 +979,13 @@ def kernel_phase(torch, dev) -> list[dict]:
         trace("flash_attention_bwd", path,
               lambda: k2.backward(q, k, v, out, lse, dout, window=window))
         names = [t["kernel"] for t in traces[-1]["kernels"]]
-        # bf16 runs on the tensor cores: no CUDA-core kernel, and the sum
-        # of the splits' partials exactly when there are splits
-        need(not any("_cc<" in n for n in names)
+        # bf16 runs on the tensor cores: only the route's kernels (at hd
+        # 128 the wgmma ones), and the sum of the splits' partials exactly
+        # when there are splits
+        need(all(_k2_bwd_kernel_ok(n, route) for n in names)
              and any("bwd_dkdv_sum" in n for n in names) == (splits > 1),
              f"flash_attention_bwd {path} (splits {splits}) ran {names}")
-        if splits > 1:
+        if path in K2_SPLIT_SWEEPS:
             # every split of the group (the rule substituted by each) beside
             # the rule's choice and SDPA's backward, in turns (forward,
             # then backward), medians
@@ -1008,7 +1070,6 @@ def kernel_phase(torch, dev) -> list[dict]:
     # the backward kernels at the training shapes (B=8, T=1024), each
     # beside its plain backward (``ref.*_backward``)
     from repro_torch.kernels import rglru_scan as k5
-    from repro_torch.kernels import rwkv_scan as k4
     no_pallas = ("none: no Pallas backward; the reference takes jax.grad of "
                  "src/repro/models/")
 
@@ -1084,6 +1145,14 @@ def kernel_phase(torch, dev) -> list[dict]:
         plain_reps=3)
     states = k4.forward(r, k, v, logw, u)[2]
     do = rand(B, T, H, M).transpose(1, 2)
+    need(k4._bwd_route(r) == "tc", "rwkv_scan_bwd train: route "
+         f"{k4._bwd_route(r)}, want tc")
+    # deterministic: every sum inside one block, du summed in a fixed order
+    twice = [k4.backward(r, k, v, logw, u, None, states, do)[:5]
+             for _ in range(2)]
+    need(all(torch.equal(a, b) for a, b in zip(*twice)),
+         "rwkv_scan_bwd rwkv6-3b train: two runs differ")
+    del twice
     # per chunk of n = 64: q_in^T do, do S_c^T, v dS'^T and k_in dS'
     # (n M^2 each), the strict-lower A, P, P k_in, P^T q_in and A^T do
     # (n (n - 1) / 2 M each); 2 flops per FMA
@@ -1091,7 +1160,7 @@ def kernel_phase(torch, dev) -> list[dict]:
     elems = B * H * T * M
     row("rwkv_scan_bwd", "rwkv6-3b train",
         {"B": B, "H": H, "T": T, "M": M, "S0": False, "dS_T": False,
-         "dtype": "bfloat16"}, (r, k, v, logw, u, states, do),
+         "dtype": "bfloat16", "route": "tc"}, (r, k, v, logw, u, states, do),
         lambda r, k, v, logw, u, st, do: k4.backward(
             r, k, v, logw, u, None, st, do)[:5],
         lambda r, k, v, logw, u, st, do: ref.rwkv_scan_backward(
@@ -1103,6 +1172,9 @@ def kernel_phase(torch, dev) -> list[dict]:
         scaled=True, plain_reps=3)
     trace("rwkv_scan_bwd", "rwkv6-3b train",
           lambda: k4.backward(r, k, v, logw, u, None, states, do))
+    names = [t["kernel"] for t in traces[-1]["kernels"]]
+    need(len(names) == 4 and all(_k4_bwd_kernel_ok(n, "tc") for n in names),
+         f"rwkv_scan_bwd rwkv6-3b train ran {names}")
     del r, k, v, logw, u, states, do
 
     emit({"phase": "kernel_traces", "traces": traces})
@@ -1152,10 +1224,12 @@ TRAIN_CASES = [
     {"arch": "qwen3_0_6b", "optimizer": "adamw", "lr": 5e-4, "B": 8,
      "T": 1024, "checkpoints": True,
      "per_step": {"flash_attention": 56, "flash_attention_bwd": 28},
+     "bwd_routes": {"flash_attention_bwd": "wgmma"},
      "parity": {"B": 2, "T": 1024}},
     {"arch": "rwkv6_3b", "optimizer": "adamw", "lr": 3e-4, "B": 8,
      "T": 1024, "one_batch": True,
      "per_step": {"rwkv_scan": 64, "rwkv_scan_bwd": 32},
+     "bwd_routes": {"rwkv_scan_bwd": "tc"},
      "parity": {"B": 2, "T": 256, "n_layers": 2,
                 "launches": {"rwkv_scan": 4, "rwkv_scan_bwd": 2},
                 "why": "the plain recurrence steps through T in Python: "
@@ -1169,6 +1243,7 @@ TRAIN_CASES = [
      "B": 8, "T": 1024, "one_batch": True, "chunked_ce": 4,
      "per_step": {"rglru_scan": 50, "rglru_scan_bwd": 26,
                   "flash_attention": 24, "flash_attention_bwd": 12},
+     "bwd_routes": {"flash_attention_bwd": "wide"},
      # MQA: 128 dK/dV blocks, its 16 heads split in 8 (_dkdv_splits)
      "cuda_per_call": {"flash_attention_bwd": 4},
      "parity": {"B": 2, "T": 256, "n_layers": 3,
@@ -1186,6 +1261,7 @@ TRAIN_CASES = [
                     "serves"},
      "per_step": {"moe_gmm": 18, "moe_gmm_bwd": 9, "flash_attention": 6,
                   "flash_attention_bwd": 3},
+     "bwd_routes": {"flash_attention_bwd": "wgmma"},
      "parity": {"B": 2, "T": 256, "n_layers": 1,
                 "launches": {"moe_gmm": 6, "moe_gmm_bwd": 3,
                              "flash_attention": 2,
@@ -1219,8 +1295,10 @@ def train_phase(torch, dev, case) -> dict:
     from repro_torch.checkpoint import restore, save
     from repro_torch.core.torchstate import tree_leaves, tree_map
     from repro_torch.dist.compression import error_bound
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv_scan as rk
     from repro_torch.models import init_params, loss_fn
     from repro_torch.train import (OptConfig, TrainState, shard_batch,
                                    synthetic_batches)
@@ -1305,6 +1383,7 @@ def train_phase(torch, dev, case) -> dict:
     if case.get("checkpoints"):
         ts.replicate()                             # the epoch backup
     losses, times, total, profiled, routes = [], [], None, None, {}
+    bwd_routes = {}                 # K2's and K4's backward calls by route
     for i, batch in enumerate(batches, start=1):
         # step 2 is traced, and the next one if the profiler's window came
         # back empty (seen now and then on the H100); the traced step is
@@ -1324,6 +1403,11 @@ def train_phase(torch, dev, case) -> dict:
         total = counts if total is None else {
             k: total[k] + n for k, n in counts.items()}
         routes = {k: routes.get(k, 0) + n for k, n in gmm.bwd_routes.items()}
+        for name, mod in (("flash_attention_bwd", fa),
+                          ("rwkv_scan_bwd", rk)):
+            for r, n in mod.bwd_routes.items():
+                key = f"{name} {r}"
+                bwd_routes[key] = bwd_routes.get(key, 0) + n
         if not traced:
             times.append((i, dt))
             continue
@@ -1368,7 +1452,7 @@ def train_phase(torch, dev, case) -> dict:
           "ms_per_step": [t for _, t in times],
           "traced_step": step_traced, "device_ms_traced_step": dev_us / 1e3,
           "kernel_shares": shares, "kernel_cuda_launches": cuda_launches,
-          "moe_gmm_bwd_routes": routes,
+          "moe_gmm_bwd_routes": routes, "bwd_routes": bwd_routes,
           "top_kernels": [(k[:80], t / 1e3, c) for k, t, c in
                           sorted(kernels, key=lambda x: -x[1])[:8]],
           "fill_add": fill_add,
@@ -1391,6 +1475,20 @@ def train_phase(torch, dev, case) -> dict:
     need(routes["wgmma"] == per_step.get("moe_gmm_bwd", 0) * TRAIN_STEPS
          and routes["tc"] == routes["f32"] == 0,
          f"moe_gmm_bwd routes {routes} in {TRAIN_STEPS} steps")
+    # K2's and K4's backwards on the case's route only, every call and
+    # every CUDA launch of the traced step
+    want_routes = {f"{name} {r}": 0 for name in ("flash_attention_bwd",
+                                                 "rwkv_scan_bwd")
+                   for r in (fa if name[0] == "f" else rk).bwd_routes}
+    for name, route in case.get("bwd_routes", {}).items():
+        want_routes[f"{name} {route}"] = per_step[name] * TRAIN_STEPS
+        ok = _k2_bwd_kernel_ok if name[0] == "f" else _k4_bwd_kernel_ok
+        bad = [k for k, _, _ in kernels
+               if _kernel_of(k) == name and not ok(k, route)]
+        need(not bad, f"{name} off its {route} route in the traced step: "
+             f"{bad}")
+    need(bwd_routes == want_routes, f"backward routes {bwd_routes} in "
+         f"{TRAIN_STEPS} steps, want {want_routes}")
     if not case.get("checkpoints"):
         del ts, batches, params
         return {f"{cfg.name} train": total}

@@ -41,8 +41,38 @@
 // at the 989 TFLOP/s bf16 tensor-core peak against 0.060 ms at 3.35 TB/s;
 // recurrentgemma-9b's (H=16, Hkv=1, hd=256) is 172 GFLOP, 0.174 ms.
 //
-// bf16 at hd <= 128 (bwd_dkdv_tc, bwd_dq_tc): mma.sync.m16n8k16 with
-// float32 accumulators in the forward's fragment layouts (mma_sync.cuh:
+// bf16 at hd 128 where TMA can read q, k, v and dout (bwd_dkdv_wgmma,
+// bwd_dq_wgmma; the wrapper's _bwd_route: every base and stride 16-byte
+// aligned): warpgroup wgmma fed by TMA, in the FlashAttention-3 manner
+// but deterministic.  A block is 384 threads: consumer warpgroups 0 and 1
+// (setmaxnreg 240) and a producer warpgroup (24) of which one warp loads.
+// Inputs are read by 4-D tensor maps (hd, rows, heads, B) built from the
+// strides (hopper.cuh), in boxes of 64 hd (128 bytes, 128-byte swizzle).
+//   (b) a block owns 128 keys (64 a warpgroup) of one kv head and split;
+//       K and V arrive once, then a two-stage ring of (head, 64-query
+//       tile) stages: Q and dO by TMA, lse (times log2 e) and D by the
+//       producer warp's 32 lanes, which arrive on the stage's mbarrier
+//       with the TMA's transaction.  Per tile, S^T = K Q^T and dP^T = V
+//       dO^T are wgmma m64n64k16 with both operands K-major in shared
+//       memory, in two commit groups; P^T is formed while dP^T is still
+//       multiplied and dV += P^T dO issued (m64n128k16, P^T as the
+//       register A operand: the accumulator layout is the A layout, so it
+//       is packed to bf16 in place; dO read MN-major through the
+//       descriptor's transpose bit) under dS^T's arithmetic, then dK +=
+//       dS^T Q.  A tile wholly inside the mask takes a path without the
+//       index tests, which would otherwise run on every element of every
+//       tile (a large share of the kernel's time when tried on the card);
+//       exp is ex2.approx.  The key tiles are the launch's last grid
+//       dimension, so that the longest blocks (the first keys, under the
+//       causal mask) start first.
+//   (c) a block owns 128 queries of one head (64 a warpgroup); Q and dO
+//       arrive once, then a two-stage ring of 64-key K and V tiles: S and
+//       dP as in (b), dQ += dS K with K read MN-major.
+// Each consumer thread holds 2 x 64 float32 accumulators (dK, dV) or 64
+// (dQ) beside 2 x 32 for the scores.
+//
+// Other bf16 calls at hd <= 128 (bwd_dkdv_tc, bwd_dq_tc): mma.sync.m16n8k16
+// with float32 accumulators in the forward's fragment layouts (mma_sync.cuh:
 // swizzled tiles, cp.async, ldmatrix), 4 warps.  In (b) each warp owns 16
 // keys and all of hd: per query tile S^T = K Q^T and dP^T = V dO^T take K
 // and V as A fragments and the Q and dO tiles as B fragments (plain
@@ -86,6 +116,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include "hopper.cuh"
 #include "mma_sync.cuh"
 
 namespace {
@@ -345,15 +376,16 @@ bwd_dq_cc(const T* __restrict__ q, const T* __restrict__ k,
 
 // Columns c, c + 1 of row offset o of dk (already scaled) and dv: bf16 into
 // dk / dv when one block sums the whole group (splits = 1), else float32
-// into split blockIdx.z's partials of ws (dk's, then dv's).
+// into split z's partials of ws (dk's, then dv's).
 __device__ __forceinline__ void put_kv(const Geo& g, bf16* dk, bf16* dv,
-                                       float* ws, long long o, float k0,
-                                       float k1, float v0, float v1) {
+                                       float* ws, int z, long long o,
+                                       float k0, float k1, float v0,
+                                       float v1) {
   if (g.splits == 1) {
     *reinterpret_cast<__nv_bfloat162*>(dk + o) = __floats2bfloat162_rn(k0, k1);
     *reinterpret_cast<__nv_bfloat162*>(dv + o) = __floats2bfloat162_rn(v0, v1);
   } else {
-    float* p = ws + (long long)blockIdx.z * g.n_kv + o;
+    float* p = ws + (long long)z * g.n_kv + o;
     *reinterpret_cast<float2*>(p) = make_float2(k0, k1);
     *reinterpret_cast<float2*>(p + (long long)g.splits * g.n_kv) =
         make_float2(v0, v1);
@@ -549,9 +581,9 @@ bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           (((long long)b * g.Hkv + kvh) * g.S + kj) * HD + 2 * t4;
 #pragma unroll
       for (int d = 0; d < DT; ++d)
-        put_kv(g, dk, dv, ws, o + d * 8, dka[d][2 * rr] * g.scale,
-               dka[d][2 * rr + 1] * g.scale, dva[d][2 * rr],
-               dva[d][2 * rr + 1]);
+        put_kv(g, dk, dv, ws, blockIdx.z, o + d * 8,
+               dka[d][2 * rr] * g.scale, dka[d][2 * rr + 1] * g.scale,
+               dva[d][2 * rr], dva[d][2 * rr + 1]);
     }
   }
 }
@@ -870,9 +902,9 @@ bwd_dkdv_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           wh * (HD / 2) + 2 * t4;
 #pragma unroll
       for (int d = 0; d < HT; ++d)
-        put_kv(g, dk, dv, ws, o + d * 8, dka[d][2 * rr] * g.scale,
-               dka[d][2 * rr + 1] * g.scale, dva[d][2 * rr],
-               dva[d][2 * rr + 1]);
+        put_kv(g, dk, dv, ws, blockIdx.z, o + d * 8,
+               dka[d][2 * rr] * g.scale, dka[d][2 * rr + 1] * g.scale,
+               dva[d][2 * rr], dva[d][2 * rr + 1]);
     }
   }
 }
@@ -1029,6 +1061,402 @@ bwd_dq_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+//  bf16 at hd 128: warpgroup wgmma fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 384;       // consumer warpgroups 0, 1; producer 2
+constexpr int kWgStages = 2;          // ring of tiles the blocks walk
+constexpr int kWgRows = 128;          // keys of a (b) block, queries of (c)
+constexpr int kWgT = 64;              // queries of a (b) tile, keys of (c)
+constexpr int kWgHd = 128;
+constexpr int kWgBlockBytes = kWgRows * kWgHd * 2;  // a 128-row operand
+constexpr int kWgTileBytes = kWgT * kWgHd * 2;      // a 64-row operand
+constexpr size_t kWgSmem =                // alignment slack, the block's two
+    1024 + 2 * (size_t)kWgBlockBytes +    // operands, the ring, lse / D rows
+    kWgStages * (2 * (size_t)kWgTileBytes + 2 * kWgT * sizeof(float)) +
+    (2 * kWgStages + 1) * 8;              // and the barriers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// wgmma descriptor of k-step kk (16 of hd) of a K-major operand of `rows`
+// rows x 128 hd in two TMA boxes of 64 hd (rows x 128 bytes each), from
+// row r0 on
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* p, int rows, int r0,
+                                           int kk) {
+  return gmma_desc(p + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 16,
+                   1024);
+}
+// wgmma descriptor of k-step kk (rows 16 kk ..) of a 64-row operand read
+// MN-major (rows are the product's K, hd its N): the two boxes of 64 hd
+// are the leading offset apart
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* p, int kk) {
+  return gmma_desc(p + kk * 16 * 128, kWgT * 128, 1024);
+}
+// 2^x in one MUFU instruction (flush to zero: P underflows to 0 anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void wg_sync(int wg) {   // one warpgroup
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// (b) one block per (b * Hkv + kv head, split, key tile of 128), the key
+// tiles last so that the launch order runs the longest (first) tiles
+// first.  Warpgroup wg owns keys k0 + 64 wg ..; the producer warp keeps
+// the ring of (head, query tile) stages full: Q and dO by TMA, lse (times
+// log2 e) and D by its 32 lanes, each lane arriving on the stage's barrier.
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ D,
+               bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ ws, Geo g) {
+  extern __shared__ __align__(16) uint8_t smem_wgk[];
+  uint8_t* base = smem_wgk + ((1024 - (smem_u32(smem_wgk) & 1023)) & 1023);
+  uint8_t* k_s = base;
+  uint8_t* v_s = k_s + kWgBlockBytes;
+  uint8_t* ring = v_s + kWgBlockBytes;      // [stage][Q, dO][64][128]
+  float* lring = reinterpret_cast<float*>(ring + kWgStages * 2 *
+                                          kWgTileBytes);  // [stage][l, D]
+  uint64_t* full = reinterpret_cast<uint64_t*>(lring + kWgStages * 2 * kWgT);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* kvbar = empty + kWgStages;
+
+  const int b = blockIdx.x / g.Hkv, kvh = blockIdx.x - b * g.Hkv;
+  const int z = blockIdx.y, k0 = blockIdx.z * kWgRows;
+  const int G = g.H / g.Hkv, Gs = G / g.splits;
+  const int h0 = kvh * G + z * Gs;                // this block's heads
+  const int2 qt = query_tiles<kWgRows, kWgT>(g, k0);
+  const int total = Gs * qt.y;                    // (head, query tile)
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(&full[st], 33);           // the expect_tx and 32 lanes
+      mbar_init(&empty[st], 2);           // one thread per consumer
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // producer: warp 8 loads, the other three leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * kWgBlockBytes);
+        for (int hh = 0; hh < 2; ++hh) {
+          tma_load(k_s + hh * kWgRows * 128, &tk, kvbar, 64 * hh, k0, kvh, b);
+          tma_load(v_s + hh * kWgRows * 128, &tv, kvbar, 64 * hh, k0, kvh, b);
+        }
+      }
+      for (int it = 0; it < total; ++it) {
+        const int st = it % kWgStages;
+        const int h = h0 + it / qt.y, q0 = qt.x + (it % qt.y) * kWgT;
+        mbar_wait(&empty[st], ((it / kWgStages) & 1) ^ 1);
+        uint8_t* qs = ring + st * 2 * kWgTileBytes;
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * kWgTileBytes);
+          for (int hh = 0; hh < 2; ++hh) {
+            tma_load(qs + hh * kWgT * 128, &tq, &full[st], 64 * hh, q0, h, b);
+            tma_load(qs + kWgTileBytes + hh * kWgT * 128, &tdo, &full[st],
+                     64 * hh, q0, h, b);
+          }
+        }
+        float* ls = lring + st * 2 * kWgT;
+        const long long row = ((long long)b * g.H + h) * g.Tq;
+        for (int i = lane; i < kWgT; i += 32) {
+          const int qi = q0 + i;
+          ls[i] = qi < g.Tq ? lse[row + qi] * kLog2e : 0.f;
+          ls[kWgT + i] = qi < g.Tq ? D[row + qi] : 0.f;
+        }
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg, keys kw ..; lane's rows gq, gq + 8 of its
+    // warp's 16, columns 2 t4, 2 t4 + 1 of each 8
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, t4 = lane & 3;
+    const int kw = k0 + wg * 64;
+    const int off = g.S - g.Tq;
+    const float sl2 = g.scale * kLog2e;
+    float dka[64], dva[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kvbar, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kWgStages;
+      const int q0 = qt.x + (it % qt.y) * kWgT;
+      mbar_wait(&full[st], (it / kWgStages) & 1);
+      const uint8_t* qs = ring + st * 2 * kWgTileBytes;
+      const uint8_t* dos = qs + kWgTileBytes;
+      const float* ls = lring + st * 2 * kWgT;
+
+      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries over all of hd,
+      // in two groups: P^T is formed while dP^T is still being multiplied
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgHd / 16; ++kk)
+        wgmma_64_ss(s, kmajor(k_s, kWgRows, wg * 64, kk),
+                    kmajor(qs, kWgT, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kWgHd / 16; ++kk)
+        wgmma_64_ss(dp, kmajor(v_s, kWgRows, wg * 64, kk),
+                    kmajor(dos, kWgT, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs<32>(s);
+
+      // P^T in float32 (kept in s), packed to bf16 as the A fragments
+      // (k-steps of 16 queries) of dV += P^T dO
+      const bool whole =
+          q0 + kWgT - 1 < g.Tq && kw + 63 < g.S &&
+          (!g.causal || kw + 63 <= q0 + off) &&
+          (g.window <= 0 || kw > q0 + kWgT - 1 + off - g.window);
+      unsigned pa[4][4], da[4][4];
+      if (whole) {                        // a tile wholly inside the mask
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] = ex2(fmaf(s[e], sl2, -ls[8 * (e >> 2) + 2 * t4 + (e & 1)]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int i = 8 * (e >> 2) + 2 * t4 + (e & 1);
+          const int kj = kw + warp * 16 + gq + 8 * ((e >> 1) & 1);
+          s[e] = visible(g, q0 + i, kj) ? ex2(fmaf(s[e], sl2, -ls[i])) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          pa[j >> 1][(j & 1) * 2 + hh] =
+              pack_bf16(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]);
+      // dV += P^T dO, dO read MN-major, under dS^T's arithmetic
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgT / 16; ++kk)
+        wgmma_128_rs(dva, pa[kk], mnmajor(dos, kk));
+      wgmma_commit();
+      wgmma_wait<1>();                    // dP^T
+      fence_regs<32>(dp);
+
+      // dS^T = P^T (dP^T - D) in float32, then dK += dS^T Q (Q MN-major)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int i = 8 * j + 2 * t4 + c, e = 4 * j + 2 * hh + c;
+            d[c] = s[e] * (dp[e] - ls[kWgT + i]);
+          }
+          da[j >> 1][(j & 1) * 2 + hh] = pack_bf16(d[0], d[1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgT / 16; ++kk)
+        wgmma_128_rs(dka, da[kk], mnmajor(qs, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(dva);
+      fence_regs<64>(dka);
+      fence_regs<16>(&pa[0][0]);
+      fence_regs<16>(&da[0][0]);
+      wg_sync(wg);                        // every warp is done with the stage
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
+    }
+
+    // dka[4 j + 2 hh + c]: key kw + 16 warp + gq + 8 hh, column 8 j + 2 t4 + c
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kj = kw + warp * 16 + gq + 8 * hh;
+      if (kj < g.S) {
+        const long long o =
+            (((long long)b * g.Hkv + kvh) * g.S + kj) * kWgHd + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < kWgHd / 8; ++j)
+          put_kv(g, dk, dv, ws, z, o + 8 * j, dka[4 * j + 2 * hh] * g.scale,
+                 dka[4 * j + 2 * hh + 1] * g.scale, dva[4 * j + 2 * hh],
+                 dva[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// (c) one block per (b * H + head, query tile of 128), the query tiles
+// last and the longest (last) first.  Warpgroup wg owns queries q0 + 64 wg
+// ..; the producer thread loads Q and dO once, then keeps the ring of K
+// and V tiles full.
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const float* __restrict__ lse, const float* __restrict__ D,
+             bf16* __restrict__ dq, Geo g) {
+  extern __shared__ __align__(16) uint8_t smem_wgq[];
+  uint8_t* base = smem_wgq + ((1024 - (smem_u32(smem_wgq) & 1023)) & 1023);
+  uint8_t* q_s = base;
+  uint8_t* do_s = q_s + kWgBlockBytes;
+  uint8_t* ring = do_s + kWgBlockBytes;     // [stage][K, V][64][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * 2 *
+                                               kWgTileBytes);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* qbar = empty + kWgStages;
+
+  const int b = blockIdx.x / g.H, h = blockIdx.x - b * g.H;
+  const int kvh = h / (g.H / g.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgRows;
+  const int2 kt = key_tiles<kWgT, kWgRows>(g, q0);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      mbar_expect_tx(qbar, 2 * kWgBlockBytes);
+      for (int hh = 0; hh < 2; ++hh) {
+        tma_load(q_s + hh * kWgRows * 128, &tq, qbar, 64 * hh, q0, h, b);
+        tma_load(do_s + hh * kWgRows * 128, &tdo, qbar, 64 * hh, q0, h, b);
+      }
+      for (int t = 0; t < kt.y; ++t) {
+        const int st = t % kWgStages, k0 = kt.x + t * kWgT;
+        mbar_wait(&empty[st], ((t / kWgStages) & 1) ^ 1);
+        uint8_t* ks = ring + st * 2 * kWgTileBytes;
+        mbar_expect_tx(&full[st], 2 * kWgTileBytes);
+        for (int hh = 0; hh < 2; ++hh) {
+          tma_load(ks + hh * kWgT * 128, &tk, &full[st], 64 * hh, k0, kvh, b);
+          tma_load(ks + kWgTileBytes + hh * kWgT * 128, &tv, &full[st],
+                   64 * hh, k0, kvh, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int gq = lane >> 2, t4 = lane & 3;
+    const int qw = q0 + wg * 64;
+    const int off = g.S - g.Tq;
+    const float sl2 = g.scale * kLog2e;
+    const long long row = ((long long)b * g.H + h) * g.Tq;
+    float l2[2], dr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qw + warp * 16 + gq + 8 * hh;
+      l2[hh] = qi < g.Tq ? lse[row + qi] * kLog2e : 0.f;
+      dr[hh] = qi < g.Tq ? D[row + qi] : 0.f;
+    }
+    float dqa[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqa[i] = 0.f;
+    mbar_wait(qbar, 0);
+
+    for (int t = 0; t < kt.y; ++t) {
+      const int st = t % kWgStages, k0 = kt.x + t * kWgT;
+      mbar_wait(&full[st], (t / kWgStages) & 1);
+      const uint8_t* ks = ring + st * 2 * kWgTileBytes;
+      const uint8_t* vs = ks + kWgTileBytes;
+
+      // S = Q K^T and dP = dO V^T, 64 queries x 64 keys over all of hd, in
+      // two groups: P is formed while dP is still being multiplied
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgHd / 16; ++kk)
+        wgmma_64_ss(s, kmajor(q_s, kWgRows, wg * 64, kk),
+                    kmajor(ks, kWgT, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kWgHd / 16; ++kk)
+        wgmma_64_ss(dp, kmajor(do_s, kWgRows, wg * 64, kk),
+                    kmajor(vs, kWgT, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs<32>(s);
+      const bool whole =
+          qw + 63 < g.Tq && k0 + kWgT - 1 < g.S &&
+          (!g.causal || k0 + kWgT - 1 <= qw + off) &&
+          (g.window <= 0 || k0 > qw + 63 + off - g.window);
+      if (whole) {                        // a tile wholly inside the mask
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] = ex2(fmaf(s[e], sl2, -l2[(e >> 1) & 1]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qi = qw + warp * 16 + gq + 8 * ((e >> 1) & 1);
+          const int kj = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+          s[e] = visible(g, qi, kj) ? ex2(fmaf(s[e], sl2, -l2[(e >> 1) & 1]))
+                                    : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<32>(dp);
+
+      // dS = P (dP - D) in float32, packed as the A fragments of dQ += dS K
+      unsigned da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float d[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * hh + c;
+            d[c] = s[e] * (dp[e] - dr[hh]);
+          }
+          da[j >> 1][(j & 1) * 2 + hh] = pack_bf16(d[0], d[1]);
+        }
+
+      // dQ += dS K, K read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgT / 16; ++kk)
+        wgmma_128_rs(dqa, da[kk], mnmajor(ks, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(dqa);
+      fence_regs<16>(&da[0][0]);
+      wg_sync(wg);
+      if ((tid & 127) == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qi = qw + warp * 16 + gq + 8 * hh;
+      if (qi < g.Tq) {
+        bf16* o = dq + (row + qi) * kWgHd + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < kWgHd / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+              __floats2bfloat162_rn(dqa[4 * j + 2 * hh] * g.scale,
+                                    dqa[4 * j + 2 * hh + 1] * g.scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 //  launches
 // ---------------------------------------------------------------------------
 struct Args {
@@ -1119,10 +1547,53 @@ int launch_wide(const Args& a, const Geo& g, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// (a), then (b), (s) and (c): bf16 on the tensor cores (hd <= 128 with 4
-// warps, 160 and 256 with 8), float32 on CUDA cores.
+// The 4-D map (hd, rows, heads, B) of a (B, heads, rows, 128) bf16 input
+// with element strides (row, head, batch), in boxes of 64 hd x box_rows.
+bool head_map(CUtensorMap* m, const void* p, int rows, int heads, int B,
+              long long sr, long long sh, long long sb, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kWgHd, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const long long strides[3] = {sr, sh, sb};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  return bf16_map(m, p, 4, dims, strides, box);
+}
+
+// (b), (s) and (c) on wgmma: bf16 at hd 128, every base and stride of q,
+// k, v and dout 16-byte aligned (the wrapper's _bwd_route)
+int launch_wgmma(const Args& a, const Geo& g, cudaStream_t s) {
+  static unsigned done_kv = 0, done_q = 0;
+  CUtensorMap k128, v128, q64, do64, q128, do128, k64, v64;
+  const int B = a.B;
+  if (!head_map(&k128, a.k, g.S, g.Hkv, B, g.k_ss, g.k_sh, g.k_sb, 128) ||
+      !head_map(&v128, a.v, g.S, g.Hkv, B, g.v_ss, g.v_sh, g.v_sb, 128) ||
+      !head_map(&q64, a.q, g.Tq, g.H, B, g.q_st, g.q_sh, g.q_sb, 64) ||
+      !head_map(&do64, a.dout, g.Tq, g.H, B, g.d_st, g.d_sh, g.d_sb, 64) ||
+      !head_map(&q128, a.q, g.Tq, g.H, B, g.q_st, g.q_sh, g.q_sb, 128) ||
+      !head_map(&do128, a.dout, g.Tq, g.H, B, g.d_st, g.d_sh, g.d_sb, 128) ||
+      !head_map(&k64, a.k, g.S, g.Hkv, B, g.k_ss, g.k_sh, g.k_sb, 64) ||
+      !head_map(&v64, a.v, g.S, g.Hkv, B, g.v_ss, g.v_sh, g.v_sb, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = smem_once((const void*)bwd_dkdv_wgmma, kWgSmem, &done_kv);
+  if (err == cudaSuccess)
+    err = smem_once((const void*)bwd_dq_wgmma, kWgSmem, &done_q);
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_wgmma<<<dim3(B * g.Hkv, g.splits, (g.S + kWgRows - 1) / kWgRows),
+                   kWgThreads, kWgSmem, s>>>(
+      k128, v128, q64, do64, a.lse, a.D, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.ws, g);
+  launch_sum(a, g, s);
+  bwd_dq_wgmma<<<dim3(B * g.H, (g.Tq + kWgRows - 1) / kWgRows), kWgThreads,
+                 kWgSmem, s>>>(q128, do128, k64, v64, a.lse, a.D,
+                               static_cast<bf16*>(a.dq), g);
+  return (int)cudaGetLastError();
+}
+
+// (a), then (b), (s) and (c): bf16 on the tensor cores (hd 128 on wgmma
+// where the wrapper says so, else hd <= 128 with 4 warps of mma.sync, 160
+// and 256 with 8), float32 on CUDA cores.
 template <int HD>
-int launch_hd(int dtype, const Args& a, const Geo& g, cudaStream_t s) {
+int launch_hd(int dtype, int wgmma, const Args& a, const Geo& g,
+              cudaStream_t s) {
   const int rows = a.B * g.H * g.Tq;
   const dim3 grid((rows + 7) / 8);    // 8 warps of 256 threads, a row each
   if (dtype == 0) {
@@ -1138,7 +1609,9 @@ int launch_hd(int dtype, const Args& a, const Geo& g, cudaStream_t s) {
                                      rows, HD, g);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  if constexpr (HD <= 128)
+  if constexpr (HD == kWgHd)
+    return wgmma ? launch_wgmma(a, g, s) : launch_tc<HD>(a, g, s);
+  else if constexpr (HD < kWgHd)
     return launch_tc<HD>(a, g, s);
   else
     return launch_wide<HD>(a, g, s);
@@ -1153,6 +1626,8 @@ int launch_hd(int dtype, const Args& a, const Geo& g, cudaStream_t s) {
 // the blocks each kv head's H / Hkv query heads are split over (a divisor
 // of H / Hkv; more than 1 only in bf16), and ws: null when splits is 1,
 // else (2, splits, B, Hkv, S, hd) float32 scratch for their partial sums.
+// wgmma: 1 takes the TMA / wgmma kernels (bf16, hd 128, every base and
+// stride but the unit one 16-byte aligned), 0 the others.
 // strides (elements): q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
 // out_sb, out_sh, out_st, dout_sb, dout_sh, dout_st; the head-dim stride
 // of every input is 1.  Returns a cudaError_t (0 on success).
@@ -1160,11 +1635,13 @@ extern "C" int repro_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* D, void* dq, void* dk,
     void* dv, float* ws, int B, int H, int Hkv, int Tq, int S, int hd,
-    int causal, int window, int splits, const long long* st, void* stream) {
+    int causal, int window, int splits, int wgmma, const long long* st,
+    void* stream) {
   if (B < 1 || Hkv < 1 || H % Hkv != 0 || Tq < 1 || S < 1 ||
       (causal && Tq > S) || window < 0 || (window > 0 && !causal) ||
       splits < 1 || (H / Hkv) % splits != 0 ||
-      (splits > 1 && (dtype != 1 || ws == nullptr)))
+      (splits > 1 && (dtype != 1 || ws == nullptr)) ||
+      (wgmma && (dtype != 1 || hd != kWgHd)))
     return (int)cudaErrorInvalidValue;
   const Geo g{H, Hkv, Tq, S, causal, window, (float)pow((double)hd, -0.5),
               splits, (long long)B * Hkv * S * hd,
@@ -1173,11 +1650,11 @@ extern "C" int repro_flash_attention_bwd(
   const Args a{q, k, v, out, dout, lse, D, dq, dk, dv, ws, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch_hd<32>(dtype, a, g, s);
-    case 64: return launch_hd<64>(dtype, a, g, s);
-    case 128: return launch_hd<128>(dtype, a, g, s);
-    case 160: return launch_hd<160>(dtype, a, g, s);
-    case 256: return launch_hd<256>(dtype, a, g, s);
+    case 32: return launch_hd<32>(dtype, wgmma, a, g, s);
+    case 64: return launch_hd<64>(dtype, wgmma, a, g, s);
+    case 128: return launch_hd<128>(dtype, wgmma, a, g, s);
+    case 160: return launch_hd<160>(dtype, wgmma, a, g, s);
+    case 256: return launch_hd<256>(dtype, wgmma, a, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -46,7 +46,8 @@
 // wgmma's transpose bits set.  So nothing is transposed in device memory.
 // The tensor maps are 3-D (E, rows, cols), built on the host for each
 // call with cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint (no -lcuda), passed as __grid_constant__.
+// cudaGetDriverEntryPoint (no -lcuda), passed as __grid_constant__; the
+// helpers for all of this are hopper.cuh's, shared with K2's backward.
 // TMA fills zeros past a tensor's bounds (ragged M, N, K), but not past
 // rows[e]: a dx tile wholly past rows[e] loads nothing and writes zeros,
 // and its rows past rows[e] are written as zeros; in dw the K loop stops
@@ -77,11 +78,11 @@
 // float32 gradients keep full float32 products.  A 256-thread block owns a
 // 64 x 64 tile of Y, each thread 4 x 4, and walks K in stages of 16 loaded
 // element by element with zero fill.
-#include <cuda.h>               // CUtensorMap and its enums (no -lcuda)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"           // mbarriers, TMA, wgmma, tensor maps
 #include "mma_sync.cuh"
 
 namespace {
@@ -334,118 +335,6 @@ constexpr int kWgStageBytes = kWgABytes + kWgBN * kWgBK * 2;
 constexpr size_t kWgSmem =           // 1024-byte alignment slack, barriers
     1024 + (size_t)kWgStages * kWgStageBytes + 2 * kWgStages * 8;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-// Wait until the phase of parity `parity` of bar has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// The box of map at (c0, c1, c2) (columns, rows, expert) into dst; its
-// bytes complete a transaction of bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2) : "memory");
-}
-// wgmma's shared-memory matrix descriptor of a 128-byte-swizzled operand
-// at p (1024-byte aligned atoms): leading and stride byte offsets.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, unsigned lbo,
-                                              unsigned sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 |
-         1ull << 62;
-}
-// Keep the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (the warpgroup's 64 x 256 float32 accumulator fragment) += A (64 x
-// 16) B (16 x 256), bf16, both read from shared memory through the
-// descriptors da and db; TA / TB: A / B is MN-major ("transposed") rather
-// than K-major.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_256(float* d, uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
 // One block per (N tile of 256, M tile of 128, expert).  A_KM: A is
 // M-major (dw's x); B_NK: B is K-major (dx's w).  ta, tb: the operands'
 // tensor maps, boxes of 64 K x 128 rows (A) or 256 rows (B) when K-major,
@@ -536,8 +425,8 @@ gmm_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
           asm volatile("bar.sync 1, 256;\n" ::: "memory");
         }
       }
-      fence_acc(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      fence_regs<128>(acc);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgBK / 16; ++kk) {
         const uint64_t da =
@@ -547,16 +436,16 @@ gmm_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
                                  : gmma_desc(bs + kk * 16 * 128, kWgBox, 1024);
         wgmma_256<A_KM ? 1 : 0, B_NK ? 0 : 1>(acc, da, db);
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      fence_acc(acc);
+      wgmma_commit();
+      fence_regs<128>(acc);
       // the previous stage's products are done: its buffers may refill
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_regs<128>(acc);
       if (kb > 0 && (tid & 127) == 0)
         mbar_arrive(&empty[(kb - 1) % kWgStages]);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
+    wgmma_wait<0>();
+    fence_regs<128>(acc);
 
     // acc[4 j + 2 h + c]: row 16 w + lane / 4 + 8 h of the warpgroup's 64,
     // column 8 j + 2 (lane % 4) + c
@@ -584,48 +473,16 @@ gmm_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The 3-D map (columns, rows, E) of a bf16 tensor at p with unit column
 // stride, row stride sr and expert stride se (elements), read in boxes of
 // bc columns x br rows, 128-byte swizzled, zeros past its bounds.
 bool tensor_map(CUtensorMap* m, const void* p, int E, int rows, int cols,
                 long long se, long long sr, int bc, int br) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)sr * 2, (cuuint64_t)se * 2};
+  const long long strides[2] = {sr, se};
   const cuuint32_t box[3] = {(cuuint32_t)bc, (cuuint32_t)br, 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bf16_map(m, p, 3, dims, strides, box);
 }
 
 // dx, then dw, on wgmma: x, w and dy with 16-byte aligned bases and strides

@@ -27,8 +27,15 @@ HEAD_DIMS = (32, 64, 128, 160, 256)  # instantiated in the CUDA sources
 launches = 0                    # forward launches since the last reset
 bwd_launches = 0                # backward calls (three CUDA launches each,
                                 # four when _dkdv_splits gives more than 1)
+# backward calls by kernel since the last reset: "wgmma" (TMA and wgmma,
+# bf16 at hd 128 with aligned operands), "tc" (mma.sync, the other bf16
+# calls at hd <= 128), "wide" (mma.sync with 8 warps, hd 160 and 256) and
+# "cc" (CUDA cores, float32); see ``_bwd_route``
+bwd_routes = {"wgmma": 0, "tc": 0, "wide": 0, "cc": 0}
 SMS = 132                       # streaming multiprocessors of an H100 SXM
-DKDV_ROWS = 64                  # keys of one dk / dv block
+DKDV_ROWS = 64                  # keys of one dk / dv block (tc, wide, cc)
+WGMMA_ROWS = 128                # keys of one dk / dv block on wgmma
+WGMMA_HEAD_DIM = 128            # the head dim the wgmma kernels take
 _fn = None
 _bwd_fn = None
 
@@ -50,7 +57,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                       + [ctypes.c_int] * 9
+                       + [ctypes.c_int] * 10
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
@@ -86,10 +93,24 @@ def check(q, k, v, causal: bool, window: int = 0) -> None:
             raise ValueError("all inputs must be on one CUDA device")
 
 
+def _bhr_strides(t) -> list[int]:
+    """The batch, head and row strides of a (B, heads, rows, hd) tensor; a
+    dim of size 1 (never stepped over) gets the stride it would have if it
+    were packed against the next one, so that every stride a TMA map is
+    given is a real step in memory."""
+    st = list(t.stride()[:3])
+    inner = t.shape[3]
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = inner
+        inner = st[i] * t.shape[i]
+    return st
+
+
 def _strides(*ts):
     """The batch, head and row strides of each (B, heads, rows, hd) tensor,
     as the C array the kernels take."""
-    flat = [t.stride(i) for t in ts for i in range(3)]
+    flat = [s for t in ts for s in _bhr_strides(t)]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
@@ -119,22 +140,58 @@ def forward(q, k, v, causal: bool, window: int, with_lse: bool):
     return out, lse
 
 
-def _dkdv_splits(B: int, Hkv: int, S: int, H: int, hd: int, dtype) -> int:
+def _bwd_route(q, k, v, dout) -> str:
+    """The backward kernels a call takes, chosen before the launch from the
+    operands alone: "cc" for float32, "wide" for bf16 at hd 160 and 256,
+    "wgmma" for bf16 at hd 128 whose q, k, v and dout TMA can read (each
+    base, and the batch, head and row strides of every dim longer than 1,
+    a positive multiple of 16 bytes), "tc" for the other bf16 calls."""
+    if q.dtype != torch.bfloat16:
+        return "cc"
+    hd = q.shape[3]
+    if hd > 128:
+        return "wide"
+    if hd != WGMMA_HEAD_DIM:
+        return "tc"
+    for t in (q, k, v, dout):
+        if t.data_ptr() % 16 or t.stride(3) != 1 or any(
+                n > 1 and (st <= 0 or (2 * st) % 16)
+                for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return "tc"
+    return "wgmma"
+
+
+def _dkdv_splits(B: int, Hkv: int, S: int, H: int, hd: int, dtype,
+                 rows: int = DKDV_ROWS) -> int:
     """How many blocks share the G = H / Hkv query heads of one kv head in
-    the dk / dv launch: 1 where the B * Hkv * ceil(S / 64) blocks of one
-    split fill two waves of the card's SMs (one block each), else the
-    least divisor of G whose blocks fill four, or G: under a causal mask
-    a block's work falls with its key tile, and more, shorter blocks even
-    the SMs out (``chip_smoke.py``'s ``k2_bwd_splits`` line times every
-    choice at recurrentgemma-9b's shape).  float32 takes 1 (its kernels
-    are parity checks).  ``hd`` does not change the rule: every bf16 head
-    dim takes it."""
+    the dk / dv launch, whose blocks own ``rows`` keys each (WGMMA_ROWS on
+    the wgmma route, else DKDV_ROWS).  The rule counts the launch's work
+    in units of 64 keys (a wgmma block's two consumer warpgroups own 64
+    keys each, as an mma.sync block does): 1 where the B * Hkv * ceil(S /
+    rows) * rows / 64 units of one split fill two waves of the card's SMs,
+    else the least divisor of G whose units fill four, or G: under a causal
+    mask a block's work falls with its key tile, and more, shorter blocks
+    even the SMs out.  ``chip_smoke.py``'s ``k2_bwd_splits`` lines time
+    every choice at recurrentgemma-9b's shape (8 is the fastest) and the
+    MoE's (1 is: its 256 wgmma blocks take longer split, PERF.md §6).
+    float32 takes 1 (its kernels are parity checks).  ``hd`` does not
+    change the rule: every bf16 head dim takes it."""
     G = H // Hkv
-    blocks = B * Hkv * math.ceil(S / DKDV_ROWS)
+    blocks = B * Hkv * math.ceil(S / rows) * (rows // DKDV_ROWS)
     if dtype != torch.bfloat16 or blocks >= 2 * SMS:
         return 1
     return next(d for d in range(1, G + 1)
                 if G % d == 0 and (blocks * d >= 4 * SMS or d == G))
+
+
+def _bwd_plan(q, k, v, dout) -> tuple[str, int]:
+    """(route, splits) of a backward call: the kernels ``_bwd_route``
+    picks, and ``_dkdv_splits`` counted in that route's key tiles."""
+    route = _bwd_route(q, k, v, dout)
+    B, H, _, hd = q.shape
+    splits = _dkdv_splits(B, k.shape[1], k.shape[2], H, hd, q.dtype,
+                          WGMMA_ROWS if route == "wgmma" else DKDV_ROWS)
+    return route, splits
 
 
 def backward(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -142,10 +199,11 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
     """K2's backward on the card: (dq (B,H,T,hd), dk, dv (B,Hkv,S,hd)) in
     q.dtype, from K2's inputs, its ``out`` and ``lse`` and the gradient
     ``dout`` of ``out``, each read through its strides.  Three CUDA
-    launches: D = rowsum(dout * out), then dk / dv, then dq (the formula of
-    ``ref.attention_backward``); where ``_dkdv_splits`` splits each group's
-    heads over several blocks, their float32 partial sums go to a
-    workspace and a fourth launch adds them in a fixed order."""
+    launches, of the kernels ``_bwd_route`` picks: D = rowsum(dout * out),
+    then dk / dv, then dq (the formula of ``ref.attention_backward``);
+    where ``_dkdv_splits`` splits each group's heads over several blocks,
+    their float32 partial sums go to a workspace and a fourth launch adds
+    them in a fixed order."""
     global bwd_launches
     check(q, k, v, causal, window)
     B, H, T, hd = q.shape
@@ -164,7 +222,7 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
     dk = torch.empty((B, Hkv, S, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     D = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    splits = _dkdv_splits(B, Hkv, S, H, hd, q.dtype)
+    route, splits = _bwd_plan(q, k, v, dout)
     ws = None if splits == 1 else torch.empty(
         (2, splits, B, Hkv, S, hd), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
@@ -173,12 +231,13 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                 D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 None if ws is None else ws.data_ptr(), B, H, Hkv, T, S, hd,
-                int(causal), window, splits, _strides(q, k, v, out, dout),
-                _stream(q))
+                int(causal), window, splits, int(route == "wgmma"),
+                _strides(q, k, v, out, dout), _stream(q))
     if rc != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: "
-                           f"cudaError_t {rc}")
+        raise RuntimeError(f"flash_attention backward launch failed "
+                           f"({route}): cudaError_t {rc}")
     bwd_launches += 1
+    bwd_routes[route] += 1
     return dq, dk, dv
 
 

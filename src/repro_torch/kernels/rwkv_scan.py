@@ -26,6 +26,10 @@ CHUNK = 64                      # csrc/rwkv_scan.cu kC
 
 launches = 0                    # forward calls since the last reset
 bwd_launches = 0                # backward calls (four CUDA launches each)
+# backward calls by kernels since the last reset: "tc" (bf16, the chunk
+# products on the tensor cores in split bf16) and "cc" (CUDA cores, the
+# float32 calls); see ``_bwd_route``
+bwd_routes = {"tc": 0, "cc": 0}
 _fn = None
 _bwd_fn = None
 
@@ -46,7 +50,7 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = _build.load("rwkv_scan_bwd").repro_rwkv_scan_bwd
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 18
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -132,15 +136,24 @@ def forward(r, k, v, logw, u, S0=None):
     return o, S, buf
 
 
+def _bwd_route(r) -> str:
+    """The backward kernels a call takes, chosen before the launch: "tc"
+    (tensor cores) for bf16 r, k, v, "cc" (CUDA cores, float32 products)
+    for float32, whose callers are parity checks."""
+    return "tc" if r.dtype == torch.bfloat16 else "cc"
+
+
 def backward(r, k, v, logw, u, S0, states, do, dS=None):
     """K4's backward on the card, from K4's inputs, the chunk-start
     ``states`` its forward left (None for T == 1), the gradient ``do``
     (B,H,T,M) float32 of o and ``dS`` (B,H,M,M) float32 of the final state
     (None: zeros) -> (dr, dk, dv in r.dtype, as (B,H,T,M) views of
     (B,T,H,M) buffers; dlogw float32, the same; du (H,M) float32, summed
-    over b and t; dS0 (B,H,M,M) float32, or None without S0).  Every input is read through its strides.  Four CUDA
-    launches: each chunk's q_in^T do, the scan of the chunk-state gradients
-    from the last chunk back, each chunk's gradients, the sum of du."""
+    over b and t; dS0 (B,H,M,M) float32, or None without S0).  Every
+    input is read through its strides.  Four CUDA launches, of the kernels
+    ``_bwd_route`` picks: each chunk's q_in^T do, the scan of the
+    chunk-state gradients from the last chunk back, each chunk's
+    gradients, the sum of du."""
     global bwd_launches
     check(r, k, v, logw, u, S0)
     B, H, T, M = r.shape
@@ -176,18 +189,21 @@ def backward(r, k, v, logw, u, S0, states, do, dS=None):
     strides = (ctypes.c_longlong * 33)(
         *(t.stride(i) for t in (r, k, v, logw, do, dr, dk, dv, dlogw)
           for i in range(3)), *bh(dS), *bh(S0), *bh(dS0))
+    route = _bwd_route(r)
     fn = _bwd_kernel()
     with torch.cuda.device(r.device):
-        rc = fn(DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rc = fn(DTYPES[r.dtype], int(route == "tc"), r.data_ptr(),
+                k.data_ptr(), v.data_ptr(),
                 logw.data_ptr(), u.data_ptr(), _ptr(S0), _ptr(states),
                 do.data_ptr(), _ptr(dS), dr.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), _ptr(dS0),
                 dsend.data_ptr(), dec.data_ptr(), du_part.data_ptr(), B, H,
                 T, M, strides, _stream(r))
     if rc != 0:
-        raise RuntimeError(f"rwkv_scan backward launch failed: "
+        raise RuntimeError(f"rwkv_scan backward launch failed ({route}): "
                            f"cudaError_t {rc}")
     bwd_launches += 1
+    bwd_routes[route] += 1
     return dr, dk, dv, dlogw, du, dS0
 
 

@@ -554,6 +554,123 @@ def test_cuda_backward_kernels_are_deterministic_at_training_shapes(
         assert k3.bwd_routes == {"wgmma": 2, "tc": 0, "f32": 0}
 
 
+def _k2_bwd_case(cuda, B, H, Hkv, T, S, hd, unaligned=False):
+    """bf16 q, k, v, dout as the model's transposed (B, T, H, hd) views,
+    q 2 bytes off its buffer when ``unaligned``."""
+    g = torch.Generator(cuda).manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+    q = rand(B, T, H, hd + unaligned)[..., int(unaligned):].transpose(1, 2)
+    k, v = (rand(B, S, Hkv, hd).transpose(1, 2) for _ in range(2))
+    return q, k, v, rand(B, T, H, hd).transpose(1, 2)
+
+
+def _k2_bwd_close(got, want):
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=TOLS["bfloat16"] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,S,causal,window,unaligned,route", [
+    (2, 16, 8, 1024, 1024, True, 0, False, "wgmma"),
+    (2, 64, 4, 1024, 1024, True, 0, False, "wgmma"),   # the MoE's G = 16
+    (1, 16, 1, 300, 700, True, 100, False, "wgmma"),   # MQA, window, T < S
+    (1, 4, 4, 50, 130, False, 0, False, "wgmma"),
+    (2, 16, 8, 1000, 1000, True, 0, True, "tc")])      # q 2 bytes off
+def test_cuda_flash_attention_backward_routes_at_hd128(
+        cuda, B, H, Hkv, T, S, causal, window, unaligned, route):
+    """K2's backward in bf16 at hd 128 on the route ``_bwd_route`` names
+    (TMA and wgmma where every base and stride is 16-byte aligned, else the
+    mma.sync kernels), counted in ``bwd_routes``, each gradient at 2e-2 of
+    its largest entry of ``ref.attention_backward``."""
+    from repro_torch.kernels import flash_attention as k2
+    q, k, v, dout = _k2_bwd_case(cuda, B, H, Hkv, T, S, 128, unaligned)
+    out, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+    ops.reset_launch_counts()
+    got = k2.backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k2.bwd_routes == {r: int(r == route) for r in k2.bwd_routes}
+    _k2_bwd_close(got, ref.attention_backward(q, k, v, out, lse, dout,
+                                              causal=causal, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "tc"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 16])
+def test_cuda_flash_attention_backward_forced_route_and_split(
+        cuda, monkeypatch, route, splits):
+    """The same aligned hd 128 inputs (G = 16, ragged T, a window) forced
+    onto either bf16 kernel pair and any split of the group: every choice
+    matches the plain backward."""
+    from repro_torch.kernels import flash_attention as k2
+    monkeypatch.setattr(k2, "_bwd_route", lambda *_: route)
+    monkeypatch.setattr(k2, "_dkdv_splits", lambda *_: splits)
+    q, k, v, dout = _k2_bwd_case(cuda, 2, 16, 1, 200, 200, 128)
+    out, lse = ref.attention_lse(q, k, v, window=50)
+    ops.reset_launch_counts()
+    got = k2.backward(q, k, v, out, lse, dout, window=50)
+    torch.cuda.synchronize()
+    assert k2.bwd_routes[route] == 1
+    _k2_bwd_close(got, ref.attention_backward(q, k, v, out, lse, dout,
+                                              window=50))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,M", [(2, 4, 1024, 64), (3, 2, 130, 37),
+                                     (1, 3, 1, 64)])
+def test_cuda_rwkv_scan_backward_bf16_route(cuda, B, H, T, M):
+    """K4's backward in bf16 on the tensor-core kernels (the route
+    ``_bwd_route`` names, counted in ``bwd_routes``) against
+    ``ref.rwkv_scan_backward`` at 2e-2 of each gradient's largest entry,
+    from an S0 with a non-zero gradient of the final state, heads of 64
+    and 37, the decode step."""
+    from repro_torch.kernels import rwkv_scan as k4
+    route = "tc"
+    g = torch.Generator(cuda).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    r, k, v = (rand(B, T, H, M).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    logw = (-0.105 * torch.sigmoid(rand(B, T, H, M))).transpose(1, 2)
+    u, S0 = rand(H, M) * 0.1, rand(B, H, M, M) * 0.5
+    states = k4.forward(r, k, v, logw, u, S0)[2]
+    do, dS = rand(B, T, H, M).transpose(1, 2), rand(B, H, M, M) * 0.5
+    ops.reset_launch_counts()
+    got = k4.backward(r, k, v, logw, u, S0, states, do, dS)
+    torch.cuda.synchronize()
+    assert k4.bwd_routes == {x: int(x == route) for x in k4.bwd_routes}
+    want = ref.rwkv_scan_backward(r, k, v, logw, u, S0, do, dS)
+    _scaled_close(got, want, TOLS["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_backward_is_deterministic_at_training_shape(cuda):
+    """K4's backward at rwkv6-3b's training shape (B=8, H=40, T=1024,
+    M=64), bf16: two calls give the same bits, on the tensor cores."""
+    from repro_torch.kernels import rwkv_scan as k4
+    g = torch.Generator(cuda).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    B, H, T, M = 8, 40, 1024, 64
+    r, k, v = (rand(B, T, H, M).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    logw = (-0.105 * torch.sigmoid(rand(B, T, H, M))).transpose(1, 2)
+    u = rand(H, M) * 0.1
+    states = k4.forward(r, k, v, logw, u)[2]
+    do = rand(B, T, H, M).transpose(1, 2)
+    ops.reset_launch_counts()
+    a = k4.backward(r, k, v, logw, u, None, states, do)
+    b = k4.backward(r, k, v, logw, u, None, states, do)
+    torch.cuda.synchronize()
+    assert k4.bwd_routes == {"tc": 2, "cc": 0}
+    assert all(torch.equal(x, y) for x, y in zip(a[:5], b[:5]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_autograd(cuda, dtype):

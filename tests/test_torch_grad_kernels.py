@@ -391,6 +391,131 @@ def test_flash_attention_backward_split_schedule(B, H, Hkv, T, S, causal,
             a, b, c, causal=causal), (q, k, v), (dout,)), TOL)
 
 
+def _query_tiles(T, S, causal, window, k0, bk, bq):
+    """``query_tiles<bk, bq>``: the first query tile and the number of
+    tiles of ``bq`` rows a dK/dV block of keys [k0, k0 + bk) walks."""
+    off = S - T
+    qbeg = (max(0, k0 - off) if causal else 0) // bq * bq
+    qend = T
+    if window:
+        qend = min(qend, min(k0 + bk, S) - 1 - off + window)
+    return qbeg, -(-(qend - qbeg) // bq) if qend > qbeg else 0
+
+
+def _key_tiles(T, S, causal, window, q0, bk, bq):
+    """``key_tiles<bk, bq>``: the first key tile and the number of tiles
+    of ``bk`` keys a dQ block of queries [q0, q0 + bq) walks."""
+    off = S - T
+    kend = min(S, min(q0 + bq, T) - 1 + off + 1) if causal else S
+    kbeg = max(0, (q0 + off - window + 1) // bk * bk) if window else 0
+    return kbeg, -(-(kend - kbeg) // bk) if kend > kbeg else 0
+
+
+def _attn_bwd_wgmma_schedule(q, k, v, dout, causal, window, splits):
+    """``csrc/flash_attention_bwd.cu``'s wgmma kernels in float64: a dK/dV
+    block owns 128 keys of one kv head, in two halves of 64 (its consumer
+    warpgroups), and split z's G / splits query heads; it walks (head,
+    query tile of 64) over the tiles ``query_tiles<128, 64>`` names, the
+    splits' partials then added in order z = 0, 1, ..  A dQ block owns 128
+    queries of one head in two halves of 64 and walks the key tiles of 64
+    that ``key_tiles<64, 128>`` names.  Every (query, key) pair a block
+    skips is asserted to be masked.  P is recomputed from the logsumexp
+    and masked entries are exactly 0."""
+    q, k, v, dout = (torch.as_tensor(t, dtype=torch.float64)
+                     for t in (q, k, v, dout))
+    B, H, T, hd = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5
+    qi, kj = torch.arange(T)[:, None], torch.arange(S)[None, :]
+    vis = torch.ones((T, S), dtype=torch.bool)
+    if causal:
+        vis &= kj <= qi + S - T
+    if window:
+        vis &= kj > qi + S - T - window
+    kf, vf = k[:, torch.arange(H) // G], v[:, torch.arange(H) // G]
+    s = (q @ kf.transpose(-1, -2) * scale).masked_fill(~vis, -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    p = torch.where(vis, p, 0.0)
+    D = (dout * (p @ vf)).sum(-1, keepdim=True)
+    ds = p * (dout @ vf.transpose(-1, -2) - D)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for kvh in range(Hkv):
+            for k0 in range(0, S, 128):
+                qbeg, nq = _query_tiles(T, S, causal, window, k0, 128, 64)
+                walked = torch.zeros((T, S), dtype=torch.bool)
+                walked[qbeg:qbeg + 64 * nq, k0:k0 + 128] = True
+                assert not (vis[:, k0:k0 + 128]
+                            & ~walked[:, k0:k0 + 128]).any()
+                parts = []
+                for z in range(splits):
+                    pk = torch.zeros_like(k[b, kvh, k0:k0 + 128])
+                    pv = torch.zeros_like(pk)
+                    for h in range(kvh * G + z * G // splits,
+                                   kvh * G + (z + 1) * G // splits):
+                        for q0 in range(qbeg, qbeg + 64 * nq, 64):
+                            rq = slice(q0, q0 + 64)
+                            for half in range(2):         # warpgroups
+                                lo = k0 + 64 * half
+                                rk = slice(lo, lo + 64)
+                                pk[64 * half:64 * half + 64] += \
+                                    ds[b, h, rq, rk].T @ q[b, h, rq]
+                                pv[64 * half:64 * half + 64] += \
+                                    p[b, h, rq, rk].T @ dout[b, h, rq]
+                    parts.append((pk * scale, pv))
+                for pk, pv in parts:
+                    n = pk.shape[0]
+                    dk[b, kvh, k0:k0 + n] += pk
+                    dv[b, kvh, k0:k0 + n] += pv
+    dq = torch.zeros_like(q)
+    for q0 in range(0, T, 128):
+        kbeg, nk = _key_tiles(T, S, causal, window, q0, 64, 128)
+        walked = torch.zeros((T, S), dtype=torch.bool)
+        walked[q0:q0 + 128, kbeg:kbeg + 64 * nk] = True
+        assert not (vis[q0:q0 + 128] & ~walked[q0:q0 + 128]).any()
+        for k0 in range(kbeg, kbeg + 64 * nk, 64):
+            rk = slice(k0, k0 + 64)
+            for half in range(2):
+                rq = slice(q0 + 64 * half, q0 + 64 * half + 64)
+                dq[:, :, rq] += ds[:, :, rq, rk] @ kf[:, :, rk] * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,causal,window,splits", [
+    (2, 8, 2, 130, 130, True, 0, 1), (2, 8, 2, 130, 130, True, 0, 2),
+    (1, 8, 1, 70, 300, True, 0, 4), (1, 8, 1, 70, 150, True, 0, 8),
+    (2, 4, 1, 200, 200, True, 40, 2), (1, 4, 1, 300, 300, True, 150, 1),
+    (1, 6, 2, 50, 90, False, 0, 3), (1, 4, 4, 256, 256, True, 0, 1),
+    (1, 16, 1, 129, 257, False, 0, 16)])
+def test_flash_attention_backward_wgmma_schedule(B, H, Hkv, T, S, causal,
+                                                 window, splits):
+    """K2's backward on wgmma at hd 128: 128-key dK/dV blocks in two 64-key
+    halves over 64-query tiles, 128-query dQ blocks over 64-key tiles,
+    G / splits heads a dK/dV block and the partials summed in order;
+    ragged T and S against both tile sizes, T < S, windows shorter and
+    longer than a tile, full attention, GQA, MQA and one head a group;
+    held against ``ref.attention_backward`` (on ``ref.attention_lse``'s
+    out and lse), autograd of ``ref.attention`` and, without a window,
+    ``jax.vjp`` of the JAX oracle.  The mirror runs at hd 32: the head
+    dim is summed whole inside every product, so the tiling under test
+    does not depend on it."""
+    hd = 32
+    q, dout = seeded(44, B, H, T, hd), seeded(45, B, H, T, hd)
+    k, v = seeded(46, B, Hkv, S, hd), seeded(47, B, Hkv, S, hd)
+    got = _attn_bwd_wgmma_schedule(q, k, v, dout, causal, window, splits)
+    tq, tk, tv, tdo = (torch.tensor(t, dtype=torch.float32)
+                       for t in (q, k, v, dout))
+    out, lse = ref.attention_lse(tq, tk, tv, causal=causal, window=window)
+    close(got, ref.attention_backward(tq, tk, tv, out, lse, tdo,
+                                      causal=causal, window=window), TOL)
+    close(got, autograd(lambda a, b, c: ref.attention(
+        a, b, c, causal=causal, window=window), (q, k, v), (dout,)), TOL)
+    if not window:
+        close(got, jax_vjp(lambda a, b, c: jref.attention(
+            a, b, c, causal=causal), (q, k, v), (dout,)), TOL)
+
+
 # ---------------------------------------------------------------------------
 #  K4: the reverse chunk scan
 # ---------------------------------------------------------------------------
@@ -540,3 +665,162 @@ def test_rwkv_backward_schedule_without_final_state_gradient():
     got = _rwkv_bwd_schedule(*ins, c["do"], None)
     close(got, autograd(ref.rwkv_scan, ins,
                         (c["do"], np.zeros((1, 2, 8, 8)))), TOL)
+
+
+# ---------------------------------------------------------------------------
+#  K4 on the tensor cores: the channel and value parts of each chunk
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """x (float64) rounded to float32, then to TF32 (10 mantissa bits,
+    round to nearest, ties away from zero: ``cvt.rna.tf32.f32``)."""
+    bits = x.to(torch.float32).view(torch.int32)
+    sign = bits & torch.tensor(-2 ** 31, dtype=torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32).to(torch.float64)
+
+
+def _bf16(x):
+    """x (float64) rounded to float32, then to bf16 (round to nearest
+    even: ``__floats2bfloat162_rn``)."""
+    return x.to(torch.float32).to(torch.bfloat16).to(torch.float64)
+
+
+def _mm_exact(a, b):
+    return a @ b
+
+
+def _mm_tf32(a, b):
+    """One TF32 product: both operands rounded, sums in float64."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_bf16(a, b):
+    """One bf16 product: both operands rounded, sums in float64."""
+    return _bf16(a) @ _bf16(b)
+
+
+def _mm_split_bf16(a, b):
+    """The kernel's split bf16: x = hi + lo, both bf16 (lo the rest of x
+    rounded), and a b as lo_a hi_b + hi_a lo_b + hi_a hi_b."""
+    ah, bh = _bf16(a), _bf16(b)
+    al, bl = _bf16(a.to(torch.float32).double() - ah), \
+        _bf16(b.to(torch.float32).double() - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _rwkv_bwd_parts_schedule(r, k, v, logw, u, S0, do, dST, mm=_mm_exact,
+                             chunk=64):
+    """``csrc/rwkv_scan_bwd.cu``'s bf16 kernels in float64, every product
+    through ``mm`` (exact, or TF32 emulated): per chunk, q_in^T do for the
+    reverse scan of the chunk-state gradients (as ``_rwkv_bwd_schedule``),
+    then two parts, each summing only inside itself:
+      the channel part: P = strict_lower(do v^T), once, then dq_in =
+        do S_c^T + P k_in, dk_in = P^T q_in and v dS'^T; dr, dk, dlogw
+        and du;
+      the value part: A = strict_lower(q_in k_in^T), once, then dv =
+        k_in dS' + A^T do + (r.u.k) do.
+    P and A pass through ``mm``'s rounding once, as the kernel keeps them
+    (split) in shared memory and reads P^T and A^T from the same tiles.
+    Returns (dr, dk, dv, dlogw, du, dS0)."""
+    f = [torch.as_tensor(t, dtype=torch.float64)
+         for t in (r, k, v, logw, u, do)]
+    r, k, v, logw, u, do = f
+    B, H, T, M = r.shape
+    dST = torch.zeros((B, H, M, M), dtype=torch.float64) if dST is None \
+        else torch.as_tensor(dST, dtype=torch.float64)
+    S = torch.zeros((B, H, M, M), dtype=torch.float64) if S0 is None \
+        else torch.as_tensor(S0, dtype=torch.float64)
+    starts = list(range(0, T, chunk))
+    cs = [torch.cumsum(logw[:, :, t0:t0 + chunk], 2) for t0 in starts]
+    q_in = [r[:, :, t0:t0 + chunk] * torch.exp(c - logw[:, :, t0:t0 + chunk])
+            for t0, c in zip(starts, cs)]
+    k_in = [k[:, :, t0:t0 + chunk] * torch.exp(-c) for t0, c in
+            zip(starts, cs)]
+    dec = [torch.exp(c[:, :, -1]) for c in cs]
+    S_c = []
+    for i, t0 in enumerate(starts):
+        S_c.append(S)
+        S = dec[i][..., None] * S + (k_in[i] * dec[i][:, :, None, :]) \
+            .transpose(-1, -2) @ v[:, :, t0:t0 + chunk]
+    dS_end, G = [None] * len(starts), dST
+    for i in reversed(range(len(starts))):
+        dS_end[i] = G
+        G = dec[i][..., None] * G + mm(q_in[i].transpose(-1, -2),
+                                       do[:, :, starts[i]:starts[i] + chunk])
+    dS0 = G
+    dr, dk, dv, dlogw = (torch.zeros_like(r) for _ in range(4))
+    du = torch.zeros((H, M), dtype=torch.float64)
+    for i, t0 in enumerate(starts):
+        sl = slice(t0, t0 + chunk)
+        n = min(chunk, T - t0)
+        rr, kk, vv, oo = r[:, :, sl], k[:, :, sl], v[:, :, sl], do[:, :, sl]
+        qi, ki, c = q_in[i], k_in[i], cs[i]
+        lower = torch.ones((n, n), dtype=torch.bool).tril(-1)
+        dSp = dec[i][..., None] * dS_end[i]
+        dd = (vv * oo).sum(-1)                                  # v . do
+        P = mm(oo, vv.transpose(-1, -2)) * lower
+        PT = P.transpose(-1, -2)
+        cprev = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], 2)
+        dq = mm(oo, S_c[i].transpose(-1, -2)) + mm(P, ki)   # channel part
+        dki = mm(PT, qi)
+        dkt = mm(vv, dSp.transpose(-1, -2))
+        uc = u[None, :, None, :]
+        dr[:, :, sl] = torch.exp(cprev) * dq + uc * kk * dd[..., None]
+        dk[:, :, sl] = torch.exp(-c) * (dki + dkt) + rr * uc * dd[..., None]
+        du += (rr * kk * dd[..., None]).sum((0, 2))
+        X, Y, Z = qi * dq, ki * dki, ki * dkt
+        Dm = (dSp * S_c[i]).sum(-1)
+        dlogw[:, :, sl] = (X.flip(2).cumsum(2).flip(2) - X
+                           - Y.flip(2).cumsum(2).flip(2)
+                           + Z.cumsum(2) - Z + Dm[:, :, None, :])
+        AT = (mm(qi, ki.transpose(-1, -2)) * lower).transpose(-1, -2)
+        bu = (rr * u[None, :, None, :] * kk).sum(-1)            # r . u . k
+        dv[:, :, sl] = mm(ki, dSp) + mm(AT, oo) + bu[..., None] * oo
+    return dr, dk, dv, dlogw, du, dS0
+
+
+@pytest.mark.parametrize("T,M", [(1, 8), (63, 16), (64, 64), (130, 8),
+                                 (200, 37)])
+def test_rwkv_backward_parts_schedule(T, M):
+    """K4's backward on the tensor cores, its channel and value parts in
+    float64: the decode step, one chunk, a full head of 64, three
+    chunks (130: ragged) and an odd head size, B = 2, H = 3, from an S0
+    with a non-zero gradient of the final state: dr, dk, dv, dlogw, du and
+    dS0 against autograd of ``ref.rwkv_scan``; from zeros against ``jax.vjp``
+    of the JAX oracle (dS0 aside)."""
+    c = _rwkv_case(2, 3, T, M, seed=48)
+    ins = (c["r"], c["k"], c["v"], c["logw"], c["u"])
+    got = _rwkv_bwd_parts_schedule(*ins, c["S0"], c["do"], c["dST"])
+    close(got, autograd(ref.rwkv_scan, ins + (c["S0"],),
+                        (c["do"], c["dST"])), TOL)
+    got = _rwkv_bwd_parts_schedule(*ins, None, c["do"], c["dST"])[:5]
+    close(got, jax_vjp(jref.rwkv_scan, ins, (c["do"], c["dST"])), TOL)
+
+
+def _scaled(got, want):
+    return [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+
+
+def test_rwkv_backward_operand_rounding():
+    """Why the kernel splits each bf16 operand: at rwkv6-3b's head size
+    (M = 64) and the model's logw bound (logw in [-0.105, 0], so factors
+    e^{-cs} up to e^6.7 inside a chunk), from bf16 r, k, v, the products
+    of the parts schedule with operands rounded to bf16 once leave dlogw,
+    whose r- and k-side sums cancel, outside the float32 tolerance (2e-3
+    of its scale) that its CUDA-core kernel met, and operands rounded to
+    TF32 once keep every gradient inside it; in split bf16 every gradient
+    is within 1e-4 of its scale of the exact schedule.  (The kernel takes
+    split bf16 and not TF32: a TF32 form ran slower on the card.)"""
+    c = _rwkv_case(1, 2, 200, 64, seed=49)
+    for name in ("r", "k", "v"):                      # bf16 inputs
+        c[name] = torch.tensor(c[name]).to(torch.bfloat16).double().numpy()
+    ins = (c["r"], c["k"], c["v"], c["logw"], c["u"], c["S0"], c["do"],
+           c["dST"])
+    exact = _rwkv_bwd_parts_schedule(*ins)
+    errs = {name: _scaled(_rwkv_bwd_parts_schedule(*ins, mm=mm), exact)
+            for name, mm in (("bf16", _mm_bf16), ("tf32", _mm_tf32),
+                             ("split", _mm_split_bf16))}
+    assert max(errs["split"]) <= 1e-4, errs
+    assert max(errs["tf32"]) <= 2e-3, errs
+    assert errs["bf16"][3] > 2e-3, errs

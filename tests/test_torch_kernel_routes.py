@@ -1,10 +1,12 @@
-"""The launch decisions of K2's and K3's backward wrappers, made in Python
-before any launch, held at every training path shape of ``PERF.md`` §6:
-how many blocks share a group's query heads in K2's dK/dV launch
-(``flash_attention._dkdv_splits``) and which kernel K3's backward takes
-(``moe_gmm._route``).  Shapes at full size use meta tensors, which carry
-shapes, strides and offsets but no storage.  CPU tensors never reach these
-kernels: they take the plain backwards of ``kernels/ref.py``.
+"""The launch decisions of K2's, K3's and K4's backward wrappers, made in
+Python before any launch, held at every training path shape of
+``PERF.md`` §6: which kernels K2's backward takes
+(``flash_attention._bwd_route``) and how many blocks share a group's query
+heads in its dK/dV launch (``flash_attention._dkdv_splits``), which kernel
+K3's backward takes (``moe_gmm._route``) and which K4's takes
+(``rwkv_scan._bwd_route``).  Shapes at full size use meta tensors, which
+carry shapes, strides and offsets but no storage.  CPU tensors never reach
+these kernels: they take the plain backwards of ``kernels/ref.py``.
 """
 
 import pytest
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as k2      # noqa: E402
 from repro_torch.kernels import moe_gmm as k3              # noqa: E402
 from repro_torch.kernels import ops, ref                   # noqa: E402
+from repro_torch.kernels import rwkv_scan as k4            # noqa: E402
 
 BF = torch.bfloat16
 
@@ -140,3 +143,118 @@ def test_cpu_moe_gmm_gradient_is_the_plain_backward(rows):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         k3.backward(x.detach(), w.detach(), dy, r)
+
+
+def _k2(B, H, Hkv, T, S, hd, dtype=BF, pad=0, offset=0, layout="model"):
+    """q, k, v, dout on the meta device: the model's (B, T, heads, hd)
+    buffers seen as (B, heads, T, hd) ("model"), or contiguous (B, heads,
+    T, hd) ("heads"); ``pad`` widens each row of q's buffer and ``offset``
+    starts q that many elements in."""
+    def view(n, rows, extra=0, off=0):
+        if layout == "heads":
+            t = torch.empty((B, n, rows, hd + extra + off), dtype=dtype,
+                            device="meta")
+            return t[..., off:off + hd]
+        t = torch.empty((B, rows, n, hd + extra + off), dtype=dtype,
+                        device="meta")
+        return t[..., off:off + hd].transpose(1, 2)
+    return (view(H, T, pad, offset), view(Hkv, S), view(Hkv, S), view(H, T))
+
+
+# (path, B, H, Hkv, T, hd, route): the trained families' K2 backward
+TRAIN_K2_ROUTES = [("qwen3-0.6b train", 8, 16, 8, 1024, 128, "wgmma"),
+                   ("qwen3-moe-235b-a22b train", 8, 64, 4, 1024, 128,
+                    "wgmma"),
+                   ("recurrentgemma-9b train", 8, 16, 1, 1024, 256, "wide")]
+
+
+@pytest.mark.parametrize("path,B,H,Hkv,T,hd,route", TRAIN_K2_ROUTES)
+def test_k2_bwd_route_at_the_training_shapes(path, B, H, Hkv, T, hd, route):
+    """bf16 at hd 128 in the model's transposed views takes the TMA /
+    wgmma kernels, hd 256 the 8-warp mma.sync ones; float32 the CUDA-core
+    ones; the same operands contiguous take the same route."""
+    assert k2._bwd_route(*_k2(B, H, Hkv, T, T, hd)) == route
+    assert k2._bwd_route(*_k2(B, H, Hkv, T, T, hd, layout="heads")) == route
+    assert k2._bwd_route(*_k2(B, H, Hkv, T, T, hd,
+                              dtype=torch.float32)) == "cc"
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,S,hd,pad,offset,route", [
+    (2, 16, 8, 1000, 1000, 128, 0, 0, "wgmma"),    # ragged T, S
+    (1, 4, 4, 50, 130, 128, 0, 0, "wgmma"),        # T < S
+    (1, 16, 1, 1, 1, 128, 0, 0, "wgmma"),          # B = Hkv = T = 1
+    (2, 16, 8, 1000, 1000, 128, 0, 1, "tc"),       # q 2 bytes off
+    (2, 16, 8, 1000, 1000, 128, 4, 0, "tc"),       # q's rows of 132
+    (2, 16, 8, 1000, 1000, 128, 8, 0, "wgmma"),    # q's rows of 136
+    (2, 8, 8, 1000, 1000, 64, 0, 0, "tc"),         # hd 64
+    (2, 4, 1, 100, 130, 32, 0, 0, "tc"),           # hd 32
+    (2, 32, 8, 1024, 1024, 160, 0, 0, "wide")])    # pixtral's hd 160
+def test_k2_bwd_route_sends_unaligned_or_other_head_dims_elsewhere(
+        B, H, Hkv, T, S, hd, pad, offset, route):
+    """TMA needs each base and each stride of a dim longer than 1 a
+    multiple of 16 bytes: an unaligned q takes the 4-warp mma.sync kernels,
+    as do hd 32 and 64; hd 160 and 256 the 8-warp ones."""
+    assert k2._bwd_route(*_k2(B, H, Hkv, T, S, hd, pad=pad,
+                              offset=offset)) == route
+
+
+def test_k2_bwd_route_refuses_a_zero_stride():
+    """An expanded (stride 0) k is no tensor TMA can map."""
+    q, k, v, dout = _k2(2, 16, 8, 256, 256, 128)
+    assert k2._bwd_route(q, k[:, :1].expand(2, 8, 256, 128), v, dout) == "tc"
+
+
+@pytest.mark.parametrize("path,B,H,Hkv,S,hd,splits", [
+    ("qwen3-0.6b train", 8, 16, 8, 1024, 128, 1),
+    ("qwen3-moe-235b-a22b train", 8, 64, 4, 1024, 128, 1),
+    ("recurrentgemma-9b train", 8, 16, 1, 1024, 256, 8),
+    ("MQA at hd 128", 8, 16, 1, 1024, 128, 8),
+    ("MQA at hd 128, B = 2", 2, 16, 1, 1024, 128, 16)])
+def test_dkdv_splits_on_the_route_each_shape_takes(path, B, H, Hkv, S, hd,
+                                                   splits):
+    """The rule counts the route's dK/dV blocks in units of 64 keys (a
+    wgmma block of 128 keys is two): the MoE's 256 wgmma blocks keep one
+    split, as recurrentgemma-9b's MQA splits in 8; MQA at hd 128 takes the
+    same splits on wgmma as its 64-key units give."""
+    rows = k2.WGMMA_ROWS if k2._bwd_route(*_k2(B, H, Hkv, S, S, hd)) \
+        == "wgmma" else k2.DKDV_ROWS
+    assert k2._dkdv_splits(B, Hkv, S, H, hd, BF, rows) == splits
+
+
+@pytest.mark.parametrize("B,H,T,M,dtype,route", [
+    (8, 40, 1024, 64, BF, "tc"), (1, 40, 1000, 64, BF, "tc"),
+    (4, 40, 1, 64, BF, "tc"), (2, 5, 1000, 40, BF, "tc"),
+    (8, 40, 1024, 64, torch.float32, "cc"),
+    (2, 5, 1000, 40, torch.float32, "cc")])
+def test_k4_bwd_route(B, H, T, M, dtype, route):
+    """K4's backward: bf16 r, k, v (rwkv6-3b's training shape, ragged T,
+    the decode step, heads under 64) take the tensor-core kernels, in the
+    model's (B, T, H, M) layout or contiguous; float32 the CUDA-core
+    ones."""
+    r = torch.empty((B, T, H, M), dtype=dtype, device="meta").transpose(1, 2)
+    assert k4._bwd_route(r) == route
+    assert k4._bwd_route(r.contiguous()) == route
+
+
+def test_cpu_rwkv_gradient_is_the_plain_backward():
+    """On the CPU ``ops.rwkv_scan`` is ``ref.rwkv_scan``: its autograd
+    gradient equals ``ref.rwkv_scan_backward``, and no kernel or route is
+    counted."""
+    g = torch.Generator().manual_seed(2)
+    B, H, T, M = 1, 2, 70, 8
+    r, k, v = (torch.randn((B, H, T, M), generator=g).requires_grad_(True)
+               for _ in range(3))
+    logw = (-0.105 * torch.rand((B, H, T, M), generator=g)) \
+        .requires_grad_(True)
+    u = (0.1 * torch.randn((H, M), generator=g)).requires_grad_(True)
+    do = torch.randn((B, H, T, M), generator=g)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.rwkv_scan(r, k, v, logw, u)[0],
+                              (r, k, v, logw, u), do)
+    assert not any(ops.launch_counts().values())
+    assert not any(k4.bwd_routes.values())
+    assert not any(k2.bwd_routes.values())
+    with torch.no_grad():
+        want = ref.rwkv_scan_backward(r, k, v, logw, u, None, do)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
