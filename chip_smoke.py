@@ -136,6 +136,21 @@ Phases, each printed as one JSON object on its own line:
      expert flips about once in 60,000 decisions in float32 and about once
      in 6 in bf16, where a flip changes that token's output wholesale.
 
+  5b. cost    ``repro_torch.benchmarks.kernel_bench.all_rows()`` on the
+              card (the reference's five seeded float32 inputs; each
+              kernel held to its plain version at 2e-3), then
+              ``launch.dryrun.trace_step`` on fake tensors on the card's
+              path, on a one-rank mesh of an in-process fake process
+              group: each TRAIN_CASES step at its train phase's shape,
+              depth and optimizer, whose kernel launches by name must
+              equal that phase's launches a step and whose parameter and
+              optimizer-state bytes must equal the card's, printed with
+              the traced FLOPs, the model FLOPs (6 N_active tokens), the
+              phase's median step, the achieved TFLOP/s and ``mfu`` (at
+              989 TFLOP/s) and the card's name and power limit, and the
+              trace's temporaries beside the phase's peak (not held);
+              then qwen3-0.6b's decode step at B=4, cache 2048, whose K1
+              launches must equal a served tick's (28).
   6. apps     the paper's four DSM applications (``repro_torch.apps``) at
               their defaults on 4 servers, on drust, gam and grappa, GEMM's
               tiles and DataFrame's chunks on the card, each held to the
@@ -206,10 +221,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# One NVIDIA H100 SXM (data sheet, dense): HBM3 bytes/s and peak FLOP/s by
-# operand type (bf16 on tensor cores; float32 on CUDA cores).
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOLS = {"float32": 2e-3, "bfloat16": 2e-2}
 # Prefill / decode logits, kernel path vs plain path, relative L2, by the
 # dtype they are compared in: in bf16 the two paths round attention to bf16
@@ -434,6 +445,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # 5b. the cost tooling ---------------------------------------------------
+    t0 = time.perf_counter()
+    cost_phase(torch, dev, smi)
+    emit({"phase": "cost_total", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6. the DSM applications ----------------------------------------------
     t0 = time.perf_counter()
     apps_phase(torch, dev)
@@ -473,7 +491,7 @@ def kernel_phase(torch, dev) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k2
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cost, ops, ref
     from repro_torch.kernels.decode_attention import TILE as K1_TILE
     from repro_torch.kernels.decode_attention import plan as k1_plan
     from repro_torch.models.layers import attention
@@ -808,12 +826,13 @@ def kernel_phase(torch, dev) -> list[dict]:
         traces.append({"name": name, "path": path, "windows": attempt,
                        "kernels": kernels})
 
-    def row(name, path, shape, ins, kernel, plain, library, nbytes, flops,
-            dtype, replaces, scaled=False, plain_reps=15):
-        """One timed row; ``scaled``: each output is held at the tolerance
-        relative to its largest entry (gradients), not elementwise;
-        ``plain_reps``: fewer launches for a plain version that takes
-        seconds."""
+    def row(name, path, shape, ins, kernel, plain, library, work, replaces,
+            scaled=False, plain_reps=15):
+        """One timed row; ``work``: the call's count (``kernels/cost.py``),
+        whose bound the row gives; ``scaled``: each output is held at the
+        tolerance relative to its largest entry (gradients), not
+        elementwise; ``plain_reps``: fewer launches for a plain version
+        that takes seconds."""
         got, want = kernel(*ins), plain(*ins)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -822,8 +841,7 @@ def kernel_phase(torch, dev) -> list[dict]:
                   for g, w in zip(got, want)) if scaled else
               all(_within(g, w, TOLS["bfloat16"]) for g, w in zip(got, want)))
         need(ok, f"timed {name} {shape}: max err {e}")
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound, bound_by = cost.bound_ms(*work)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -834,8 +852,7 @@ def kernel_phase(torch, dev) -> list[dict]:
             "library_ms": None if library is None
             else timed(lambda: library(*ins)),
             "library_note": NO_LIBRARY if library is None else None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            "bound_ms": bound, "bound_by": bound_by})
 
     K1 = "src/repro/kernels/decode_attention.py:62"
     # full lengths, then the lengths the serve path reaches (<= 33), where
@@ -848,7 +865,6 @@ def kernel_phase(torch, dev) -> list[dict]:
             ("qwen3-moe-235b-a22b serve", (4, 64, 4, 2048, 128), 33),
             ("pixtral-12b serve", (4, 32, 8, 2048, 160), 2048)):
         ins = k1_inputs(B, H, Hkv, S, hd, bf, [length] * B)
-        n_keys = B * length
         pl = k1_plan(B, H, Hkv, S, hd)
 
         def sdpa_decode(q, k, v, lens, n=length):
@@ -861,8 +877,7 @@ def kernel_phase(torch, dev) -> list[dict]:
              "splits": pl.splits, "keys_per_split": pl.keys_per_split,
              "blocks": pl.blocks}, ins, ops.decode_attention,
             ref.decode_attention, sdpa_decode,
-            2 * (2 * B * H * hd) + 2 * n_keys * Hkv * hd * 2 + 4 * B,
-            4 * n_keys * H * hd, "bfloat16", K1)
+            cost.decode_attention(B, H, Hkv, S, hd, bf, [length] * B), K1)
 
     # the float32 K1 (CUDA cores) at the same shapes, beside the bf16 rows
     # (tensor cores): what the CUDA-core design costs as G grows
@@ -906,8 +921,6 @@ def kernel_phase(torch, dev) -> list[dict]:
             ("qwen3-moe-235b-a22b prefill", (64, 4, 1024, 128, 0)),
             ("pixtral-12b prefill", (32, 8, 1024, 160, 0))):
         ins = k2_inputs(H, Hkv, T, T, hd, bf)
-        # (query, key) pairs under the causal mask and the window
-        pairs = sum(min(i + 1, window or T) for i in range(T))
         mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
         if window:
             mask &= ~mask.tril(-window)
@@ -922,8 +935,8 @@ def kernel_phase(torch, dev) -> list[dict]:
              "causal": True, "window": window, "dtype": "bfloat16"}, ins,
             lambda q, k, v, w=window: ops.flash_attention(q, k, v, window=w),
             lambda q, k, v, w=window: ref.attention(q, k, v, window=w),
-            sdpa, 2 * (2 * H * T * hd + 2 * Hkv * T * hd),
-            4 * pairs * H * hd, "bfloat16", K2)
+            sdpa, cost.flash_attention(1, H, Hkv, T, T, hd, bf,
+                                       window=window), K2)
 
     # the training paths: K2's forward and its backward at each trained
     # family's shape, the backward beside SDPA's backward (only the
@@ -934,15 +947,12 @@ def kernel_phase(torch, dev) -> list[dict]:
             ("qwen3-moe-235b-a22b train", (8, 64, 4, 1024, 128, 0))):
         tshape = {"B": B, "H": H, "Hkv": Hkv, "T": T, "S": T, "hd": hd,
                   "causal": True, "window": window, "dtype": "bfloat16"}
-        # (query, key) pairs of a head under the mask
-        pairs = B * sum(min(i + 1, window or T) for i in range(T))
         mask = None
         if window:
             mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
             mask &= ~mask.tril(-window)
         q, k, v, dout = (rand(B, n, T, hd, dtype=bf)
                          for n in (H, Hkv, Hkv, H))
-        io = 2 * (2 * B * H * T * hd + 2 * B * Hkv * T * hd)
 
         def sdpa(q, k, v, mask=mask):
             return F.scaled_dot_product_attention(
@@ -951,7 +961,8 @@ def kernel_phase(torch, dev) -> list[dict]:
         row("flash_attention", path, tshape, (q, k, v),
             lambda q, k, v, w=window: ops.flash_attention(q, k, v, window=w),
             lambda q, k, v, w=window: ref.attention(q, k, v, window=w),
-            sdpa, io, 4 * pairs * H * hd, "bfloat16", K2)
+            sdpa, cost.flash_attention(B, H, Hkv, T, T, hd, bf, window=window),
+            K2)
         out, lse = ref.attention_lse(q, k, v, window=window)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = sdpa(*leaves)
@@ -971,9 +982,7 @@ def kernel_phase(torch, dev) -> list[dict]:
             lambda *a, w=window: ref.attention_backward(*a, window=w),
             lambda *_: torch.autograd.grad(sdpa_out, leaves, dout,
                                            retain_graph=True),
-            # read q, k, v, out, dout and lse once; write dq, dk and dv
-            2 * io + 4 * B * H * T,
-            10 * pairs * H * hd, "bfloat16",
+            cost.flash_attention_bwd(B, H, Hkv, T, T, hd, bf, window=window),
             "none: no Pallas backward; the reference takes jax.grad of "
             "src/repro/models/layers.py:51", scaled=True)
         trace("flash_attention_bwd", path,
@@ -1022,28 +1031,20 @@ def kernel_phase(torch, dev) -> list[dict]:
             shape.update(rows="routed", live_experts=live, live_rows=n_rows)
         row("moe_gmm", path, shape, (x, w, r), ops.moe_gmm, ref.moe_gmm,
             lambda x, w, r: torch.bmm(x, w),
-            2 * (n_rows * D + live * D * F_ + E * C * F_)
-            + (0 if r is None else 4 * E),
-            2 * n_rows * D * F_, "bfloat16", "src/repro/kernels/moe_gmm.py:42")
+            cost.moe_gmm(E, C, D, F_, bf, None if r is None else r.tolist()),
+            "src/repro/kernels/moe_gmm.py:42")
         if D == 4096:                      # gate/up: prefill and routed
             trace("moe_gmm", path, lambda: ops.moe_gmm(x, w, r))
         del x, w
 
     for path, (B, T, with_s0) in (("rwkv6-3b prefill", (1, 1024, False)),
                                   ("rwkv6-3b serve", (4, 1, True))):
-        H, M, C = 40, 64, 64
+        H, M = 40, 64
         ins = k4_inputs(B, H, T, M, bf, with_s0)
-        # chunk form, valid rows only: strict-lower scores, scores @ v with
-        # the diagonal, q_in @ S and the state update, 2 flops per FMA
-        fmas = sum(n * (n - 1) // 2 * M + n * (n + 1) // 2 * M
-                   + 2 * n * M * M
-                   for n in (min(C, T - t0) for t0 in range(0, T, C)))
         row("rwkv_scan", path,
             {"B": B, "H": H, "T": T, "M": M, "S0": with_s0,
              "dtype": "bfloat16"}, ins, ops.rwkv_scan, ref.rwkv_scan, None,
-            3 * B * H * T * M * 2 + 2 * B * H * T * M * 4 + H * M * 4
-            + (2 if with_s0 else 1) * B * H * M * M * 4,
-            2 * B * H * fmas, "bfloat16",
+            cost.rwkv_scan(B, H, T, M, bf, S0=with_s0),
             "src/repro/kernels/rwkv_scan.py:61")
         trace("rwkv_scan", path, lambda: ops.rwkv_scan(*ins))
 
@@ -1054,8 +1055,7 @@ def kernel_phase(torch, dev) -> list[dict]:
         row("rglru_scan", path, {"B": B, "T": T, "D": D,
                                  "dtype": "float32"},
             ins, ops.rglru_scan, ref.rglru_scan, None,
-            3 * B * T * D * 4, 2 * B * T * D, "float32",
-            "src/repro/kernels/rglru_scan.py:42")
+            cost.rglru_scan(B, T, D), "src/repro/kernels/rglru_scan.py:42")
         trace("rglru_scan", path, lambda: ops.rglru_scan(*ins))
     # K5's prefill bytes (read a and b, write h) in one elementwise pass:
     # what the card's memory gives a plain streaming kernel, beside the
@@ -1078,15 +1078,14 @@ def kernel_phase(torch, dev) -> list[dict]:
     n = a.numel()
     row("rglru_scan", "recurrentgemma-9b train",
         {"B": B, "T": T, "D": D, "dtype": "float32"}, (a, b),
-        ops.rglru_scan, ref.rglru_scan, None, 12 * n, 2 * n, "float32",
+        ops.rglru_scan, ref.rglru_scan, None, cost.rglru_scan(B, T, D),
         "src/repro/kernels/rglru_scan.py:42", plain_reps=3)
     dh = rand(B, T, D)
     h = k5.forward(a, b)
     row("rglru_scan_bwd", "recurrentgemma-9b train",
         {"B": B, "T": T, "D": D, "dtype": "float32"}, (a, h, dh),
         k5.backward, ref.rglru_scan_backward, None,
-        # read a, h and dh, write da and db; g = c g + x and da = g h
-        20 * n, 3 * n, "float32", no_pallas + "rglru.py:80", scaled=True,
+        cost.rglru_scan_bwd(B, T, D), no_pallas + "rglru.py:80", scaled=True,
         plain_reps=3)
     trace("rglru_scan_bwd", "recurrentgemma-9b train",
           lambda: k5.backward(a, h, dh))
@@ -1112,17 +1111,15 @@ def kernel_phase(torch, dev) -> list[dict]:
         row("moe_gmm", path, {"E": E, "C": C, "D": D, "F": F_,
                               "dtype": "bfloat16"}, (x, w, None),
             ops.moe_gmm, ref.moe_gmm, lambda x, w, r: torch.bmm(x, w),
-            2 * (E * C * D + E * D * F_ + E * C * F_), 2 * E * C * D * F_,
-            "bfloat16", "src/repro/kernels/moe_gmm.py:42", plain_reps=3)
+            cost.moe_gmm(E, C, D, F_, bf), "src/repro/kernels/moe_gmm.py:42",
+            plain_reps=3)
         row("moe_gmm_bwd", path, {"E": E, "C": C, "D": D, "F": F_,
                                   "dtype": "bfloat16",
                                   "route": k3._route(x, w, dy)}, (x, w, dy),
             k3.backward, ref.moe_gmm_backward,
             lambda x, w, dy: (torch.bmm(dy, w.transpose(1, 2)),
                               torch.bmm(x.transpose(1, 2), dy)),
-            # read x, w and dy, write dx and dw
-            2 * (2 * E * C * D + 2 * E * D * F_ + E * C * F_),
-            4 * E * C * D * F_, "bfloat16", no_pallas + "moe.py:76",
+            cost.moe_gmm_bwd(E, C, D, F_, bf), no_pallas + "moe.py:76",
             scaled=True, plain_reps=3)
         need(rows[-1]["shape"]["route"] == "wgmma" and k3.bwd_launches > 0
              and k3.bwd_routes == {"wgmma": k3.bwd_launches, "tc": 0,
@@ -1133,15 +1130,10 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     B, H, T, M = 8, 40, 1024, 64
     r, k, v, logw, u, _ = k4_inputs(B, H, T, M, bf, False)
-    nc = T // 64
-    # the forward's FMAs as in its prefill row
-    fwd_fmas = B * H * nc * (64 * 63 // 2 * M + 64 * 65 // 2 * M
-                             + 2 * 64 * M * M)
     row("rwkv_scan", "rwkv6-3b train",
         {"B": B, "H": H, "T": T, "M": M, "S0": False, "dtype": "bfloat16"},
         (r, k, v, logw, u), ops.rwkv_scan, ref.rwkv_scan, None,
-        B * H * T * M * (3 * 2 + 2 * 4) + H * M * 4 + B * H * M * M * 4,
-        2 * fwd_fmas, "bfloat16", "src/repro/kernels/rwkv_scan.py:61",
+        cost.rwkv_scan(B, H, T, M, bf), "src/repro/kernels/rwkv_scan.py:61",
         plain_reps=3)
     states = k4.forward(r, k, v, logw, u)[2]
     do = rand(B, T, H, M).transpose(1, 2)
@@ -1153,11 +1145,6 @@ def kernel_phase(torch, dev) -> list[dict]:
     need(all(torch.equal(a, b) for a, b in zip(*twice)),
          "rwkv_scan_bwd rwkv6-3b train: two runs differ")
     del twice
-    # per chunk of n = 64: q_in^T do, do S_c^T, v dS'^T and k_in dS'
-    # (n M^2 each), the strict-lower A, P, P k_in, P^T q_in and A^T do
-    # (n (n - 1) / 2 M each); 2 flops per FMA
-    fmas = B * H * nc * (4 * 64 * M * M + 5 * 64 * 63 // 2 * M)
-    elems = B * H * T * M
     row("rwkv_scan_bwd", "rwkv6-3b train",
         {"B": B, "H": H, "T": T, "M": M, "S0": False, "dS_T": False,
          "dtype": "bfloat16", "route": "tc"}, (r, k, v, logw, u, states, do),
@@ -1165,10 +1152,7 @@ def kernel_phase(torch, dev) -> list[dict]:
             r, k, v, logw, u, None, st, do)[:5],
         lambda r, k, v, logw, u, st, do: ref.rwkv_scan_backward(
             r, k, v, logw, u, None, do)[:5], None,
-        # read r, k, v (bf16), logw, do and the chunk states (float32), u;
-        # write dr, dk, dv (bf16), dlogw and du
-        elems * (3 * 2 + 2 * 4 + 3 * 2 + 4) + states.numel() * 4
-        + 2 * H * M * 4, 2 * fmas, "bfloat16", no_pallas + "rwkv.py:64",
+        cost.rwkv_scan_bwd(B, H, T, M, bf), no_pallas + "rwkv.py:64",
         scaled=True, plain_reps=3)
     trace("rwkv_scan_bwd", "rwkv6-3b train",
           lambda: k4.backward(r, k, v, logw, u, None, states, do))
@@ -1271,6 +1255,36 @@ TRAIN_CASES = [
 ]
 
 
+# What each train phase measured, by model name, for the cost phase: the
+# median ms per step, the kernel launches of a step (held exactly every
+# step), the bytes of the parameters and optimizer state on the card, and
+# the peak memory allocated
+TRAIN_MEASURED: dict[str, dict] = {}
+
+
+def _train_cfg(case):
+    """(the config a TRAIN_CASES entry trains, its cut or None)."""
+    from repro_torch import configs
+
+    cfg = configs.get(case["arch"])
+    reduced = None
+    if "cut" in case:
+        reduced = {"n_layers": [cfg.n_layers, case["cut"]["n_layers"]],
+                   "why": case["cut"]["why"]}
+        cfg = dataclasses.replace(cfg, n_layers=case["cut"]["n_layers"])
+    return dataclasses.replace(cfg, chunked_ce=case.get("chunked_ce", 0)), \
+        reduced
+
+
+def _train_opt(case):
+    """The optimizer a TRAIN_CASES entry trains with (warmup 5, cosine
+    over 20 steps)."""
+    from repro_torch.train import OptConfig
+
+    return OptConfig(name=case["optimizer"], lr=case["lr"], warmup=5,
+                     decay_steps=2 * TRAIN_STEPS)
+
+
 def _kernel_of(name: str):
     """The kernel (a key of CUDA_NAMES) a profiler name belongs to."""
     for kernel, parts in CUDA_NAMES.items():
@@ -1291,7 +1305,6 @@ def train_phase(torch, dev, case) -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import configs
     from repro_torch.checkpoint import restore, save
     from repro_torch.core.torchstate import tree_leaves, tree_map
     from repro_torch.dist.compression import error_bound
@@ -1300,16 +1313,9 @@ def train_phase(torch, dev, case) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv_scan as rk
     from repro_torch.models import init_params, loss_fn
-    from repro_torch.train import (OptConfig, TrainState, shard_batch,
-                                   synthetic_batches)
+    from repro_torch.train import TrainState, shard_batch, synthetic_batches
 
-    cfg = configs.get(case["arch"])
-    reduced = None
-    if "cut" in case:
-        reduced = {"n_layers": [cfg.n_layers, case["cut"]["n_layers"]],
-                   "why": case["cut"]["why"]}
-        cfg = dataclasses.replace(cfg, n_layers=case["cut"]["n_layers"])
-    cfg = dataclasses.replace(cfg, chunked_ce=case.get("chunked_ce", 0))
+    cfg, reduced = _train_cfg(case)
     L = cfg.n_layers
     per_step = case["per_step"]
 
@@ -1377,8 +1383,7 @@ def train_phase(torch, dev, case) -> dict:
     # after the warmup in 10 steps (measured on the H100): Adam's near-sign
     # steps on the tied embedding (std 0.02) add more spread to the logits
     # than the step takes out
-    opt = OptConfig(name=case["optimizer"], lr=case["lr"], warmup=5,
-                    decay_steps=2 * TRAIN_STEPS)
+    opt = _train_opt(case)
     ts = TrainState(cfg, opt, params)
     if case.get("checkpoints"):
         ts.replicate()                             # the epoch backup
@@ -1417,6 +1422,12 @@ def train_phase(torch, dev, case) -> dict:
             profiled = (i, kernels)
     need(profiled is not None, "the profiler recorded no kernel in steps "
          f"2 to {TRAIN_STEPS}")
+    TRAIN_MEASURED[cfg.name] = {
+        "ms": statistics.median([t for i, t in times if i >= 3]),
+        "per_step": {k: n for k, n in counts.items() if n},
+        "state_bytes": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(ts.state.read())),
+        "peak": torch.cuda.max_memory_allocated()}
     step_traced, kernels = profiled
     dev_us = sum(t for _, t, _ in kernels)
     shares, cuda_launches = {}, {}
@@ -1547,6 +1558,98 @@ def train_phase(torch, dev, case) -> dict:
           "leaves": len(tree_leaves(state))})
     del ts, trained, state, batches, params
     return {f"{cfg.name} train": total}
+
+
+# ---------------------------------------------------------------------------
+#  the cost tooling: the kernel bench, and dry-runs held to measured steps
+# ---------------------------------------------------------------------------
+def cost_phase(torch, dev, smi: str) -> None:
+    """``kernel_bench.all_rows()`` on the card, each kernel held to its
+    plain version; then ``launch.dryrun.trace_step`` (the function the
+    dry-run's ``lower_cell`` runs) on fake tensors on a one-rank mesh of
+    a fake process group, on the card's path: each TRAIN_CASES step at its
+    train phase's shape, depth and optimizer, whose kernel launches by name
+    must equal that phase's launches per step and whose parameter and
+    optimizer-state argument bytes must equal the real state's on the
+    card, beside the phase's median step (model FLOPs 6 N_active tokens,
+    the traced FLOPs, the achieved TFLOP/s and ``mfu`` at 989 TFLOP/s);
+    the trace's temporaries are printed beside the phase's peak, not held;
+    last, qwen3-0.6b's decode step at the serve phase's shape (B=4, cache
+    2048), whose K1 launches must equal a served tick's."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import kernel_bench, roofline
+    from repro_torch.kernels import cost
+    from repro_torch.launch.dryrun import init_fake_group, trace_step
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    rows = kernel_bench.all_rows()
+    errs = {}
+    for name, kernel, plain, args, _ in kernel_bench.cases():
+        got, want = kernel(*args), plain(*args)
+        errs[name] = _err(got, want)
+        need(_within(got, want, TOLS["float32"]),
+             f"kernel_bench {name}: max err {errs[name]}")
+    emit({"phase": "cost_kernel_bench", "nvidia_smi": smi,
+          "rows": [{"name": n, "us": us, "derived": d} for n, us, d in rows],
+          "max_abs_err": errs, "tol": TOLS["float32"],
+          "seconds": time.perf_counter() - t0})
+
+    init_fake_group(1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for case in TRAIN_CASES:
+            cfg, reduced = _train_cfg(case)
+            meas = TRAIN_MEASURED[cfg.name]
+            B, T = case["B"], case["T"]
+            rec = trace_step(cfg, "train", B, T, mesh, opt=_train_opt(case))
+            launches = {k: v["launches"] for k, v in rec["kernels"].items()}
+            parts = rec["memory"]["argument_bytes"]
+            model = roofline.model_flops({
+                "active_params": cfg.active_param_count(), "batch": B,
+                "seq": T, "mode": "train"})
+            traced = rec["cost_raw"]["flops"]
+            s = meas["ms"] / 1e3
+            emit({"phase": "cost", "arch": cfg.name, "layers": cfg.n_layers,
+                  "reduced": reduced, "B": B, "T": T,
+                  "optimizer": case["optimizer"], "nvidia_smi": smi,
+                  "traced_flops": traced,
+                  "aten_flops": rec["cost_raw"]["aten_flops"],
+                  "kernel_flops": {k: v["flops"]
+                                   for k, v in rec["kernels"].items()},
+                  "model_flops": model, "ms_per_step_median": meas["ms"],
+                  "achieved_tflops": traced / s / 1e12,
+                  "model_tflops": model / s / 1e12,
+                  "mfu": model / (s * cost.PEAK_FLOPS["bfloat16"]),
+                  "traced_launches": launches,
+                  "measured_launches": meas["per_step"],
+                  "state_bytes_traced": parts["params"] + parts["opt_state"],
+                  "state_bytes_measured": meas["state_bytes"],
+                  "temp_estimate_bytes":
+                      rec["memory"]["temp_size_in_bytes"],
+                  "max_memory_allocated": meas["peak"],
+                  "trace_s": rec["compile_s"],
+                  "traced_ops": rec["traced_ops"]})
+            need(launches == meas["per_step"], f"{cfg.name} dry-run "
+                 f"launches {launches}, the train phase's a step "
+                 f"{meas['per_step']}")
+            need(parts["params"] + parts["opt_state"] == meas["state_bytes"],
+                 f"{cfg.name} dry-run state bytes {parts}, the card's "
+                 f"{meas['state_bytes']}")
+        arch, _, _, per_tick = MODELS[0][:4]
+        cfg = configs.get(arch)
+        rec = trace_step(cfg, "decode", 4, 2048, mesh)
+        launches = {k: v["launches"] for k, v in rec["kernels"].items()}
+        emit({"phase": "cost_decode", "arch": cfg.name, "B": 4, "cache": 2048,
+              "traced_flops": rec["cost_raw"]["flops"],
+              "traced_launches": launches, "served_per_tick": per_tick,
+              "kernels": rec["kernels"], "trace_s": rec["compile_s"]})
+        need(launches == per_tick, f"{cfg.name} decode dry-run launches "
+             f"{launches}, a served tick's {per_tick}")
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -1742,6 +1845,7 @@ def apps_phase(torch, dev) -> None:
     from repro_torch.analysis import lint_paths
     from repro_torch.analysis.lint import default_targets
     from repro_torch.apps import APPS, run_gemm
+    from repro_torch.kernels import cost
 
     for app, fn in APPS.items():
         for backend in APP_BACKENDS:
@@ -1834,7 +1938,7 @@ def apps_phase(torch, dev) -> None:
 
     tiles_ms, tiles_host_ms = events_ms(products)
     matmul_ms, _ = events_ms(lambda: A @ B)
-    bound_ms = 2.0 * n ** 3 / PEAK_FLOPS["float32"] * 1e3
+    bound_ms = 2.0 * n ** 3 / cost.PEAK_FLOPS["float32"] * 1e3
     emit({"phase": "apps_gemm", "app": "gemm", "backend": "drust",
           "servers": 4, "n": n, "tile": tile, "tile_products": r.ops,
           "wall_s": wall, "makespan_us": r.makespan_us,

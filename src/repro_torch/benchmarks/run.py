@@ -1,20 +1,26 @@
 """The benchmark entry point of the port (the counterpart of
 ``benchmarks/run.py``):
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.run --quick \\
+    PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast|--quick] \\
         [--device cuda|cpu] [--out PATH]
 
-``--quick`` runs the protocol micro-benchmarks and the batched-I/O-plane app
-sweep and prints ``name,us_per_call,derived`` CSV, as the reference's
-``--quick`` does.  It builds the same summary as the reference's
-``BENCH_protocol.json`` and writes it only to ``--out PATH``: the committed
-file is the reference's baseline and is never written over.  It runs on
-the card unless ``--device cpu``: GEMM's tiles, DataFrame's chunks and the
-serving sweep's weights are tensors on that device.
+Every mode prints ``name,us_per_call,derived`` CSV and runs on the card
+unless ``--device cpu``: GEMM's tiles, DataFrame's chunks and the serving
+sweep's weights are tensors on that device, and the kernel bench times the
+CUDA kernels there (the plain versions, rows ``kernel_<name>_plain``, on
+the CPU).
 
-The reference's ``--fast`` and full runs (paper figures, kernel bench,
-roofline) have no counterpart yet (``ROADMAP.md`` item 11b): asking for
-them exits with an error.
+The full run, as the reference's: the paper's figures and tables
+(``paper_figs``), the protocol micro-benchmarks, the kernel bench and,
+when ``artifacts/dryrun_torch/`` holds dry-run records, their roofline
+rows.  ``--fast`` runs the figures at 1 and 8 nodes and the kernel bench
+without K4 and K5.
+
+``--quick`` runs the protocol micro-benchmarks and the batched-I/O-plane app
+sweep, as the reference's ``--quick`` does.  It builds the same summary as
+the reference's ``BENCH_protocol.json`` and writes it only to ``--out
+PATH``: the committed file is the reference's baseline and is never
+written over.
 """
 
 from __future__ import annotations
@@ -224,15 +230,27 @@ def main(argv=None) -> int:
                     help="write the summary JSON here (nothing is written "
                          "without it)")
     a = ap.parse_args(argv)
-    if a.fast or not a.quick:
-        print("only --quick is ported: the reference's --fast and full runs "
-              "(paper_figs, kernel_bench, roofline) have no counterpart in "
-              "repro_torch yet (ROADMAP.md item 11b)", file=sys.stderr)
-        return 2
-    print_csv(quick(a.out, a.device))
-    if a.out is not None:
-        print(f"wrote {a.out}", file=sys.stderr)
+    if a.quick:
+        print_csv(quick(a.out, a.device))
+        if a.out is not None:
+            print(f"wrote {a.out}", file=sys.stderr)
+        return 0
+    print("name,us_per_call,derived")
+    for name, us, derived in full_rows(a.fast, a.device):
+        print(f"{name},{us:.2f},{derived}")
     return 0
+
+
+def full_rows(fast: bool = False, device="cuda"):
+    """The rows of the full run (``--fast``: the short one), in the
+    reference's order: figures, protocol micro-benchmarks, kernel bench,
+    roofline; each section's rows as its module yields them."""
+    from . import kernel_bench, paper_figs, roofline
+    dev = resolve_device(device)
+    yield from paper_figs.all_rows(fast=fast, device=dev)
+    yield from protocol_micro.all_rows(dev)
+    yield from kernel_bench.all_rows(fast=fast, device=dev)
+    yield from roofline.all_rows()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ package's Pallas TPU kernels.
 Each kernel has: ``csrc/<name>.cu`` (CUDA C++ with a plain C interface,
 built by ``_build`` with ``nvcc`` at first use and loaded with ``ctypes``),
 a wrapper in ``<name>.py`` (checks, output allocation, launch counter), a
-plain PyTorch version in ``ref.py``, and dispatch by device in ``ops.py``.
+plain PyTorch version in ``ref.py``, dispatch by device in ``ops.py``, and
+its count of work (FLOPs, bytes, the bound on an H100) in ``cost.py``,
+which a wrapper handed a fake tensor records instead of launching.
 
 Kernels:
   decode_attention — K1: one-token query vs a long KV cache or a ring

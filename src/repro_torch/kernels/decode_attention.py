@@ -7,6 +7,11 @@ take, plans the split over the cache (``plan``), allocates the output and
 the float32 scratch of the splits, launches on the current stream and
 counts the launch (one per call; the splits are combined inside it).  It runs only on CUDA tensors: ``ops.decode_attention`` sends CPU
 tensors to ``ref.decode_attention`` instead.
+
+A fake tensor (a trace on ``FakeTensorMode``, inside
+``cost.card_path()``) gets its outputs allocated and its call recorded in
+``cost``, with ``cost.py``'s count of its work; nothing is launched or
+counted as a launch.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, cost
 from ._grad import refuse_grad
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,7 +104,7 @@ def check(q, k, v, lengths) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit head-dim stride")
     for t in (q, k, v, lengths):
-        if not t.is_cuda or t.device != q.device:
+        if not cost.on_card(t) or t.device != q.device:
             raise ValueError("all inputs must be on one CUDA device")
 
 
@@ -126,6 +131,11 @@ def decode_attention(q, k, v, lengths):
     pl = plan(B, H, Hkv, S, hd)
     bases = B * Hkv * pl.head_groups
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    if cost.is_fake(q):                 # a trace: count it, launch nothing;
+        # the lengths are not known, so every cached key is counted
+        cost.record("decode_attention", upper_bound=True, B=B, H=H,
+                    Hkv=Hkv, S=S, hd=hd, dtype=q.dtype)
+        return out
     part = torch.empty(bases * pl.splits * pl.heads_per_block * (hd + 2),
                        dtype=torch.float32, device=q.device)
     tickets = _ticket_buffer(q.device, bases * TICKETS)

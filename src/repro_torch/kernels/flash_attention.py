@@ -10,6 +10,11 @@ tensors to ``ref.attention`` instead.  Under grad mode, with an input that
 requires grad, the call goes through ``FlashAttention``: its forward
 launches K2 with ``lse`` and its backward launches the backward kernel, so
 the gradient on the card is a kernel's too.
+
+A fake tensor (a trace on ``FakeTensorMode``, inside
+``cost.card_path()``) gets its outputs allocated and its call recorded in
+``cost``, with ``cost.py``'s count of its work; nothing is launched or
+counted as a launch.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 160, 256)  # instantiated in the CUDA sources
@@ -89,7 +94,7 @@ def check(q, k, v, causal: bool, window: int = 0) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit head-dim stride")
     for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
+        if not cost.on_card(t) or t.device != q.device:
             raise ValueError("all inputs must be on one CUDA device")
 
 
@@ -127,6 +132,11 @@ def forward(q, k, v, causal: bool, window: int, with_lse: bool):
     out = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if cost.is_fake(q):                 # a trace: count it, launch nothing
+        cost.record("flash_attention", B=B, H=H, Hkv=Hkv, T=T, S=S,
+                    hd=hd, dtype=q.dtype, causal=causal, window=window,
+                    with_lse=with_lse)
+        return out, lse
     fn = _kernel()
     with torch.cuda.device(q.device):
         rc = fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -221,6 +231,10 @@ def backward(q, k, v, out, lse, dout, *, causal: bool = True,
     dq = torch.empty((B, H, T, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, S, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    if cost.is_fake(q):                 # a trace: count it, launch nothing
+        cost.record("flash_attention_bwd", B=B, H=H, Hkv=Hkv, T=T, S=S,
+                    hd=hd, dtype=q.dtype, causal=causal, window=window)
+        return dq, dk, dv
     D = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     route, splits = _bwd_plan(q, k, v, dout)
     ws = None if splits == 1 else torch.empty(

@@ -8,6 +8,11 @@ launch.  It runs only on CUDA tensors: ``ops.moe_gmm`` sends CPU tensors to
 ``ref.moe_gmm`` instead.  Under grad mode, with an input that requires
 grad, the call goes through ``MoeGmm``, whose backward launches the
 backward kernel.
+
+A fake tensor (a trace on ``FakeTensorMode``, inside
+``cost.card_path()``) gets its outputs allocated and its call recorded in
+``cost``, with ``cost.py``'s count of its work; nothing is launched or
+counted as a launch.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -74,7 +79,7 @@ def check(x, w, rows=None) -> None:
                              or not rows.is_contiguous()):
         raise ValueError(f"rows must be ({x.shape[0]},) int32 and "
                          f"contiguous; got {tuple(rows.shape)} {rows.dtype}")
-    if not x.is_cuda or any(t.device != x.device for t in
+    if not cost.on_card(x) or any(t.device != x.device for t in
                             (w,) + (() if rows is None else (rows,))):
         raise ValueError("all inputs must be on one CUDA device")
 
@@ -89,6 +94,11 @@ def forward(x, w, rows=None):
     E, C, D = x.shape
     F = w.shape[2]
     y = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if cost.is_fake(x):                 # a trace: count it, launch nothing;
+        # the live rows are not known, so every row is counted
+        cost.record("moe_gmm", upper_bound=rows is not None, E=E, C=C,
+                    D=D, F=F, dtype=x.dtype)
+        return y
     strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), w.stride(0),
                                       w.stride(1), y.stride(0), y.stride(1))
     fn = _kernel()
@@ -136,6 +146,10 @@ def backward(x, w, dy, rows=None):
                          "stride on F")
     dx = torch.empty((E, C, D), dtype=x.dtype, device=x.device)
     dw = torch.empty((E, D, F), dtype=w.dtype, device=x.device)
+    if cost.is_fake(x):                 # a trace: count it, launch nothing
+        cost.record("moe_gmm_bwd", upper_bound=rows is not None, E=E,
+                    C=C, D=D, F=F, dtype=x.dtype)
+        return dx, dw
     st = (ctypes.c_longlong * 10)(*(t.stride(i) for t in (x, w, dy, dx, dw)
                                     for i in range(2)))
     route = _route(x, w, dy)

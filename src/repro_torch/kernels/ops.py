@@ -1,7 +1,9 @@
 """Public kernel entry points, dispatched by device.
 
 A CUDA tensor goes to the hand-written kernel (built at first use), a CPU
-tensor to its plain version in ``ref``; any other device raises.  There is
+tensor to its plain version in ``ref``; any other device raises.  Inside
+``cost.card_path()`` a fake tensor goes to the kernel's wrapper, which
+records the call in ``cost`` and launches nothing.  There is
 no fallback: a kernel that cannot take a CUDA input raises.  This is the
 counterpart of ``repro.kernels.ops``, where non-TPU backends run the Pallas
 kernels in interpret mode.
@@ -9,6 +11,7 @@ kernels in interpret mode.
 
 from __future__ import annotations
 
+from . import cost
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import moe_gmm as _gmm
@@ -21,9 +24,11 @@ KERNELS = {"decode_attention": _decode, "flash_attention": _flash,
 
 
 def _on(t) -> str:
+    """"cuda" for the card's path (``cost.on_card``: a fake tensor of a
+    trace of it too), "cpu" for the plain one."""
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {t.device}")
-    return t.device.type
+    return "cuda" if cost.on_card(t) else "cpu"
 
 
 # the kernels with a backward kernel, counted apart as "<name>_bwd"

@@ -8,6 +8,11 @@ launch.  It runs only on CUDA tensors: ``ops.rglru_scan`` sends CPU
 tensors to ``ref.rglru_scan`` instead.  Under grad mode, with an input
 that requires grad, the call goes through ``RGLRUScan``, whose backward
 launches the backward kernel.
+
+A fake tensor (a trace on ``FakeTensorMode``, inside
+``cost.card_path()``) gets its outputs allocated and its call recorded in
+``cost``, with ``cost.py``'s count of its work; nothing is launched or
+counted as a launch.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 launches = 0                    # forward launches since the last reset
 bwd_launches = 0                # backward launches since the last reset
@@ -58,7 +63,7 @@ def check(a, b) -> None:
         raise ValueError(f"dtypes {a.dtype}/{b.dtype}: want float32")
     if a.stride(-1) != 1 or b.stride(-1) != 1:
         raise ValueError("a and b must have a unit stride on D")
-    if not a.is_cuda or b.device != a.device:
+    if not cost.on_card(a) or b.device != a.device:
         raise ValueError("all inputs must be on one CUDA device")
 
 
@@ -73,6 +78,9 @@ def forward(a, b):
     global launches
     B, T, D = a.shape
     h = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
+    if cost.is_fake(a):                 # a trace: count it, launch nothing
+        cost.record("rglru_scan", B=B, T=T, D=D)
+        return h
     fn = _kernel()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -100,6 +108,9 @@ def backward(a, h, dh):
     B, T, D = a.shape
     da = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
     db = torch.empty_like(da)
+    if cost.is_fake(a):                 # a trace: count it, launch nothing
+        cost.record("rglru_scan_bwd", B=B, T=T, D=D)
+        return da, db
     fn = _bwd_kernel()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

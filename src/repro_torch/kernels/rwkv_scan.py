@@ -10,6 +10,11 @@ the chunk outputs), all from one C call.  It runs only on CUDA tensors:
 grad mode, with an input that requires grad, the call goes through
 ``RWKVScan``: its forward keeps the chunk states the forward wrote into its
 scratch, and its backward launches ``csrc/rwkv_scan_bwd.cu``.
+
+A fake tensor (a trace on ``FakeTensorMode``, inside
+``cost.card_path()``) gets its outputs allocated and its call recorded in
+``cost``, with ``cost.py``'s count of its work; nothing is launched or
+counted as a launch.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_SIZE = 64              # M: the kernel's shared-memory tiles
@@ -87,7 +92,7 @@ def check(r, k, v, logw, u, S0=None) -> None:
         if S0.stride(-1) != 1 or S0.stride(-2) != M:
             raise ValueError("each (M, M) state of S0 must be contiguous")
     for t in (r, k, v, logw, u) + (() if S0 is None else (S0,)):
-        if not t.is_cuda or t.device != r.device:
+        if not cost.on_card(t) or t.device != r.device:
             raise ValueError("all inputs must be on one CUDA device")
 
 
@@ -120,6 +125,10 @@ def forward(r, k, v, logw, u, S0=None):
                           dtype=torch.float32, device=r.device)
         dec = torch.empty((B * H, nc, MAX_HEAD_SIZE), dtype=torch.float32,
                           device=r.device)
+    if cost.is_fake(r):                 # a trace: count it, launch nothing
+        cost.record("rwkv_scan", B=B, H=H, T=T, M=M, dtype=r.dtype,
+                    S0=S0 is not None)
+        return o, S, buf
     s0 = (0, 0) if S0 is None else (S0.stride(0), S0.stride(1))
     strides = (ctypes.c_longlong * 19)(
         *(t.stride(i) for t in (r, k, v, logw, o) for i in range(3)),
@@ -179,6 +188,10 @@ def backward(r, k, v, logw, u, S0, states, do, dS=None):
     du = torch.empty((H, M), dtype=torch.float32, device=r.device)
     dS0 = torch.empty((B, H, M, M), dtype=torch.float32, device=r.device) \
         if S0 is not None else None
+    if cost.is_fake(r):                 # a trace: count it, launch nothing
+        cost.record("rwkv_scan_bwd", B=B, H=H, T=T, M=M, dtype=r.dtype,
+                    S0=S0 is not None, dS=dS is not None)
+        return dr, dk, dv, dlogw, du, dS0
     f32 = dict(dtype=torch.float32, device=r.device)
     dsend = torch.empty(want, **f32)
     dec = torch.empty((B * H, nc, MAX_HEAD_SIZE), **f32)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from repro_torch.dist.sharding import ulysses_heads
-from repro_torch.kernels import ops
+from repro_torch.kernels import cost, ops
 
 NEG_INF = -1e30
 
@@ -166,8 +166,9 @@ def project_qkv(cfg: ModelConfig, p, x, positions):
 
 
 def use_kernels(cfg: ModelConfig, x) -> bool:
-    """The card's path: CUDA tensors, unless the config asks for plain."""
-    return x.is_cuda and cfg.attn_impl != "plain"
+    """The card's path: CUDA tensors (and a trace's fake ones inside
+    ``kernels.cost.card_path()``), unless the config asks for plain."""
+    return cost.on_card(x) and cfg.attn_impl != "plain"
 
 
 def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,

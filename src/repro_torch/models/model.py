@@ -1,5 +1,5 @@
-"""Public model API: init / forward / loss / cache / decode (the
-counterpart of ``repro.models.model``)."""
+"""Public model API: init / forward / loss / cache / decode + batch specs
+(the counterpart of ``repro.models.model``)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,25 @@ def loss_fn(cfg: ModelConfig, params, batch, mesh=None):
     true = logits.gather(-1, labels[..., None])[..., 0]
     nll = (torch.logsumexp(logits, dim=-1) - true).mean()
     return nll + 0.01 * aux
+
+
+def build_batch_spec(cfg: ModelConfig, global_batch: int, seq_len: int,
+                     mode: str = "train"):
+    """Stand-ins for every model input (the dry-run's): tensors on the
+    ``meta`` device, of the reference's shapes and dtypes.  ``tokens``
+    (B, T) int32, with ``labels`` for train and ``prefix_embeds`` (B, P, D)
+    in the model's dtype where ``cfg.prefix_len`` is set; decode takes one
+    new token a row against a cache of ``seq_len``: tokens (B, 1)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if mode in ("train", "prefill"):
+        out = {"tokens": spec((global_batch, seq_len), torch.int32)}
+        if mode == "train":
+            out["labels"] = spec((global_batch, seq_len), torch.int32)
+        if cfg.prefix_len:
+            out["prefix_embeds"] = spec(
+                (global_batch, cfg.prefix_len, cfg.d_model),
+                getattr(torch, cfg.dtype))
+        return out
+    return {"tokens": spec((global_batch, 1), torch.int32)}

@@ -987,3 +987,50 @@ def test_cuda_quick_equals_the_committed_bench_file(cuda):
     diff = run.diff_sections(run.quick(device="cuda"), base)
     assert len(diff) == 11
     assert {s: bad for s, (_, bad) in diff.items() if bad} == {}
+
+
+# --------------------------------------------------------------------------
+#  the cost tooling on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_cuda_kernel_bench_rows_match_plain(cuda):
+    """``kernel_bench.all_rows()``: each CUDA kernel on the reference's
+    seeded float32 inputs, timed, within 2e-3 of its plain version."""
+    from repro_torch.benchmarks import kernel_bench
+
+    rows = kernel_bench.all_rows()
+    cases = kernel_bench.cases()
+    assert [r[0] for r in rows] == [f"kernel_{c[0]}" for c in cases]
+    assert len(rows) == 5
+    for (name, kernel, plain, args, _), (_, us, derived) in zip(cases, rows):
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOLS["float32"],
+                                   atol=TOLS["float32"], msg=name)
+        assert us > 0
+        assert derived <= TOLS["float32"] * (1 + float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_dry_run_launches_equal_a_tick(cuda):
+    """qwen3-0.6b's decode step at the serve phase's shape (B=4, a cache of
+    2048): the dry-run's kernel launches equal a real step's on the card."""
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = configs.get("qwen3_0_6b")
+    rec = trace_step(cfg, "decode", 4, 2048)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    cache = init_cache(cfg, 4, 2048, device=cuda)
+    step = make_serve_step(cfg)
+    tokens = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        tokens, cache = step(params, cache, tokens)   # warm
+        ops.reset_launch_counts()
+        step(params, cache, tokens)
+    torch.cuda.synchronize()
+    real = {k: n for k, n in ops.launch_counts().items() if n}
+    assert real == {k: v["launches"] for k, v in rec["kernels"].items()}
+    assert real == {"decode_attention": 28}

@@ -45,7 +45,12 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
             "repro_torch.launch.elastic", "repro_torch.dist.sharding",
             "repro_torch.dist.pipeline", "repro_torch.dist.collectives",
             "repro_torch.launch.mesh",
-            "repro_torch.models.decode_sharded"} <= set(mods)
+            "repro_torch.models.decode_sharded",
+            "repro_torch.kernels.cost", "repro_torch.launch.dryrun",
+            "repro_torch.benchmarks.roofline",
+            "repro_torch.benchmarks.perf_iter",
+            "repro_torch.benchmarks.paper_figs",
+            "repro_torch.benchmarks.kernel_bench"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

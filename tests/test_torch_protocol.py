@@ -151,12 +151,6 @@ def test_cli_prints_the_reference_csv_and_writes_only_to_out(
     assert sorted(os.listdir(tmp_path)) == ["bench.json"]
 
 
-@pytest.mark.parametrize("argv", [["--fast"], []])
-def test_cli_refuses_the_runs_it_does_not_have(argv, capsys):
-    assert trun.main(argv) != 0
-    assert "item 11b" in capsys.readouterr().err
-
-
 # --------------------------------------------------------------------------
 #  The live elastic rescale
 # --------------------------------------------------------------------------
