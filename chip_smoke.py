@@ -66,6 +66,21 @@ Phases, each printed as one JSON object on its own line:
               qwen3-moe-235b-a22b and rwkv6-3b beside the plain backward
               (and, for K3, two ``torch.bmm`` calls; for K5,
               ``k5_bwd_same_bytes``: a ``torch.add`` over the same bytes).
+              Ragged K3 (``starts``: the all-to-all dispatch's packed
+              buffer) is timed at the shape of the mesh phase's one-rank
+              all-to-all runs (128 experts, M = 8,192 rows of a seeded
+              routing of 1,024 tokens to their top 8, none dropped):
+              gate/up and down in bf16, gate/up and the backward (the
+              ``f32`` route) in float32; these rows carry those runs'
+              launches.  Then at one rank of the production mesh
+              (qwen3-moe-235b-a22b train_4k on 16 x 16: M = 40,960 rows,
+              8 experts, a seeded routing at capacity factor 1.25), a
+              shape no run here reaches: gate/up, down and the backward
+              (on the ``tc`` route), whose rows name the run their
+              launches come from (``launches_from``, ``launches_at``).
+              Each backward runs twice, ``torch.equal``; each row is
+              beside its plain version and, in bf16,
+              ``torch._grouped_mm`` with ``offs``.
   4. train    four families at their published widths (TRAIN_CASES),
               each in turn: the float32 ``loss_fn`` gradients through the
               kernels and their backwards against ``attn_impl="plain"``
@@ -181,9 +196,20 @@ Phases, each printed as one JSON object on its own line:
               outputs summed over ``model``), whose logits must equal the
               prefill without a mesh (``torch.equal``: a sum over one rank
               is the identity) with the same launches (K3 9, K2 3); then,
-              in float32 at a capacity that drops no token (capacity
-              factor E / k), the all-to-all dispatch (``moe_a2a``) against
-              the gather dispatch (relative L2 2e-3).  qwen3-0.6b at 28
+              at a capacity that drops no token (capacity factor E / k),
+              the all-to-all dispatch (``moe_a2a``: ragged K3 over the
+              received rows sorted by expert, 9 launches, K2 3) against
+              the gather dispatch, in bf16 (relative L2 5e-2) and in
+              float32 (2e-3), each with its peak memory; in bf16 also
+              each K3 call of one more all-to-all prefill against
+              ``ref.moe_gmm`` on its own inputs (the routing's rows and
+              starts, elementwise at 2e-2), and both dispatches on the
+              plain path, whose relative L2s against each other and
+              against the kernel runs are printed (not held: see the
+              MoE's routing flips in bf16 under 5); then one float32
+              gradient of ``loss_fn`` through the all-to-all dispatch at
+              one layer, B=1, T=1024, against the plain path (each leaf
+              at 2e-3; K3 6 / 3 on the ``f32`` route, K2 2 / 1).  qwen3-0.6b at 28
               layers: the DSM-backed engine as the serve phase runs it (8
               requests of 16 tokens, ``Cluster(4, "drust")``, int8 wire)
               without a mesh, on the mesh (the same tokens; K1 28 a tick)
@@ -348,6 +374,12 @@ K5_BWD_TOL = 1e-4
 # others are freed: its serve phase needs the most memory.
 MOE_LAYERS = 3
 PIXTRAL_LAYERS = 28
+# the runs of the all-to-all MoE dispatch (ragged K3) in ``mesh_moe``: its
+# bf16 prefill, and its float32 prefill and gradient step.  The kernel
+# rows at their shape take these runs' launches; those at one production
+# rank's shape name the run theirs come from (``launches_from``)
+A2A_BF16 = "qwen3-moe-235b-a22b a2a bf16"
+A2A_F32 = "qwen3-moe-235b-a22b a2a float32"
 MODELS = [
     ("qwen3_0_6b", 1024, {"flash_attention": 28}, {"decode_attention": 28},
      "bfloat16", None),
@@ -437,11 +469,7 @@ def main() -> int:
     phases = [lambda c=c: train_phase(torch, dev, c) for c in TRAIN_CASES] + [
         lambda m=m: model_phases(torch, dev, *m) for m in MODELS]
     for phase in phases:
-        launches = phase()
-        for row in rows:                 # "<model> serve, routed": serve
-            path = row["path"].split(",")[0]
-            if path in launches:
-                row["launches"] = launches[path][row["name"]]
+        take_launches(rows, phase())
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -466,7 +494,7 @@ def main() -> int:
 
     # 8. the multi-device paths on a one-card mesh --------------------------
     t0 = time.perf_counter()
-    mesh_phase(torch, dev)
+    take_launches(rows, mesh_phase(torch, dev))
     emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0})
 
     keys = ("name", "route", "source", "replaces", "path", "shape",
@@ -482,6 +510,16 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def take_launches(rows: list[dict], launches: dict) -> None:
+    """Give each kernel row its launches in a phase's ``launches`` (keyed
+    by path): those of its path's part before a comma ("<model> serve,
+    routed": serve), or of the run its shape's ``launches_from`` names."""
+    for row in rows:
+        path = row["shape"].get("launches_from", row["path"].split(",")[0])
+        if path in launches:
+            row["launches"] = launches[path][row["name"]]
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +605,29 @@ def kernel_phase(torch, dev) -> list[dict]:
         for e in range(E):                 # one expert at a time: no f32 copy
             w[1, e] = rand(D, F_, dtype=dtype)
         return x, w[1]
+
+    def a2a_rank_rows(E_all=128, n_model=16, N=4096, k=8, cf=1.25):
+        """(rows, starts, M) of rank 0 of the all-to-all dispatch, as
+        ``moe_a2a_block`` fills it: each of n_model source ranks routes N
+        seeded tokens to their top-k of E_all experts and sends rank 0 its
+        top-cap (token, expert) pairs for rank 0's E_all / n_model experts
+        by gate; rows (E_loc,) int32 each expert's count, starts their
+        exclusive sums, M = n_model cap the packed buffer's rows."""
+        E_loc = E_all // n_model
+        cap = min(max(4, -(-int(N * k * cf / n_model) // 4) * 4), N * k)
+        g = torch.Generator(dev).manual_seed(4)
+        rows = torch.zeros(E_loc, dtype=torch.int64, device=dev)
+        for _ in range(n_model):
+            probs = torch.softmax(torch.randn((N, E_all), generator=g,
+                                              device=dev), -1)
+            top_p, top_ids = probs.topk(k)
+            score = torch.where(top_ids < E_loc, top_p, float("-inf"))
+            kept, idx = score.reshape(-1).topk(cap)
+            ids = top_ids.reshape(-1)[idx][kept > float("-inf")]
+            rows += torch.bincount(ids, minlength=E_loc)
+        rows = rows.to(torch.int32)
+        return rows, torch.cumsum(rows, 0, dtype=torch.int32) - rows, \
+            n_model * cap
 
     def k5_inputs(B, T, D, a_val=None, strided=False):
         """a, b (B,T,D) float32; ``strided``: a is a window of a wider
@@ -1127,6 +1188,82 @@ def kernel_phase(torch, dev) -> list[dict]:
              f"moe_gmm_bwd {path} {D}: routes {k3.bwd_routes}, want wgmma")
         trace("moe_gmm_bwd", path, lambda: k3.backward(x, w, dy))
         del x, w, dy
+
+    # ragged K3 (``starts``): first at the shape of ``mesh_moe``'s one-rank
+    # all-to-all runs (E_loc 128, M 8,192: 1,024 tokens to their top 8 of
+    # 128, none dropped), in bf16 (its prefill) and float32 (its prefill
+    # and gradient step), whose launches these rows carry; then at one rank
+    # of the production mesh (qwen3-moe-235b-a22b train_4k on 16 x 16:
+    # E_loc 8, M 16 x 2,560, cf 1.25), a shape no run of this script
+    # reaches, whose rows name the run their launches come from
+    # (``launches_from``).  Each beside ``torch._grouped_mm`` with ``offs``
+    # (the segments' ends), which computes the same products in bf16.
+    nodrop = {"n_model": 1, "N": 1024, "cf": 128 / 8}
+    elsewhere = {
+        "moe_gmm": {"launches_from": A2A_BF16, "launches_at":
+                    "E 128, M 8192: no run reaches this shape"},
+        "moe_gmm_bwd": {"launches_from": A2A_F32, "launches_at":
+                        "E 128, M 8192 in float32 (the f32 route): no run "
+                        "reaches this shape or the tc route"}}
+    for path, at, dt, products, bwd_route, labels in (
+            (A2A_BF16 + ", one rank, no drop", nodrop, bf,
+             ((4096, 1536), (1536, 4096)), None, None),
+            (A2A_F32 + ", one rank, no drop", nodrop, torch.float32,
+             ((4096, 1536),), "f32", None),
+            (A2A_BF16 + ", one rank of 16x16 train_4k", {}, bf,
+             ((4096, 1536), (1536, 4096)), "tc", elsewhere)):
+        rows_a, starts_a, M = a2a_rank_rows(**at)
+        E = rows_a.shape[0]
+        offs = torch.cumsum(rows_a, 0, dtype=torch.int32)
+        dname = str(dt).removeprefix("torch.")
+        for D, F_ in products:
+            x = rand(M, D, dtype=dt)
+            w = k3_inputs(E, 1, D, F_, dt)[1]
+            shape = {"E": E, "M": M, "D": D, "F": F_, "dtype": dname,
+                     "ragged": True, "live_rows": int(rows_a.sum()),
+                     "rows": rows_a.tolist()}
+            grouped = dt == bf
+            row("moe_gmm", path,
+                {**shape, **(labels or {}).get("moe_gmm", {})},
+                (x, w, rows_a, starts_a),
+                ops.moe_gmm, ref.moe_gmm,
+                (lambda x, w, r, s: torch._grouped_mm(x, w, offs=offs))
+                if grouped else None,
+                cost.moe_gmm(E, M, D, F_, dt, rows_a.tolist(), ragged=True),
+                "src/repro/kernels/moe_gmm.py:42", plain_reps=3)
+            if D == 4096:
+                trace("moe_gmm", path,
+                      lambda: ops.moe_gmm(x, w, rows_a, starts_a))
+            if D != 4096 or bwd_route is None:
+                del x, w
+                continue
+            dy = rand(M, F_, dtype=dt)
+            twice = [k3.backward(x, w, dy, rows_a, starts_a)
+                     for _ in range(2)]
+            need(all(torch.equal(a, b) for a, b in zip(*twice)),
+                 f"moe_gmm_bwd {path}: two runs differ")
+            del twice
+            ops.reset_launch_counts()
+            row("moe_gmm_bwd", path,
+                {**shape, "route": bwd_route,
+                 **(labels or {}).get("moe_gmm_bwd", {})},
+                (x, w, dy, rows_a, starts_a), k3.backward,
+                ref.moe_gmm_backward,
+                (lambda x, w, dy, r, s: (
+                    torch._grouped_mm(dy, w.transpose(1, 2), offs=offs),
+                    torch._grouped_mm(x.t(), dy, offs=offs)))
+                if grouped else None,
+                cost.moe_gmm_bwd(E, M, D, F_, dt, rows_a.tolist(),
+                                 ragged=True), no_pallas + "moe.py:76",
+                scaled=True, plain_reps=3)
+            need(k3.bwd_launches > 0 and k3.bwd_routes == {
+                **{r: 0 for r in k3.bwd_routes},
+                bwd_route: k3.bwd_launches},
+                 f"moe_gmm_bwd {path}: routes {k3.bwd_routes}, "
+                 f"want {bwd_route}")
+            trace("moe_gmm_bwd", path,
+                  lambda: k3.backward(x, w, dy, rows_a, starts_a))
+            del x, w, dy
 
     B, H, T, M = 8, 40, 1024, 64
     r, k, v, logw, u, _ = k4_inputs(B, H, T, M, bf, False)
@@ -2006,9 +2143,10 @@ def protocol_phase(dev) -> None:
 # ---------------------------------------------------------------------------
 #  the multi-device paths on a one-card NCCL mesh
 # ---------------------------------------------------------------------------
-def mesh_phase(torch, dev) -> None:
+def mesh_phase(torch, dev) -> dict:
     """``mesh_moe``, ``mesh_serve`` and ``mesh_state`` on the (1, 1)
-    ("data", "model") mesh of a one-rank NCCL process group."""
+    ("data", "model") mesh of a one-rank NCCL process group.  Returns
+    ``mesh_moe``'s launches."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
@@ -2025,22 +2163,31 @@ def mesh_phase(torch, dev) -> None:
               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
               "device_type": mesh.device_type})
         need(mesh.device_type == "cuda", "the mesh is not on the card")
-        for part in (mesh_moe, mesh_serve, mesh_state):
-            part(torch, dev, mesh)
+        launches = mesh_moe(torch, dev, mesh)
+        for part in (mesh_serve, mesh_state):
             gc.collect()
             torch.cuda.empty_cache()
+            part(torch, dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+    return launches
 
 
-def mesh_moe(torch, dev, mesh) -> None:
+def mesh_moe(torch, dev, mesh) -> dict:
     """qwen3-moe-235b-a22b at MOE_LAYERS layers: a B=1, T=1024 prefill
     without a mesh and through ``moe_shardmap``'s gather dispatch on
-    ``mesh`` (equal logits, equal launches), then in float32 at a capacity
-    that drops nothing, the all-to-all dispatch against the gather one."""
+    ``mesh`` (equal logits, equal launches), then at a capacity that drops
+    nothing, in bf16 and in float32, the all-to-all dispatch (ragged K3)
+    against the gather one; in bf16 also each K3 call of one all-to-all
+    prefill against ``ref.moe_gmm`` on its own inputs, and both dispatches
+    on the plain path; then one float32 gradient through the all-to-all
+    dispatch (``mesh_a2a_grad``).  Returns the all-to-all runs' kernel
+    launches, keyed A2A_BF16 and A2A_F32."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import init_params
     from repro_torch.serve import make_prefill
 
@@ -2064,45 +2211,174 @@ def mesh_moe(torch, dev, mesh) -> None:
             torch.cuda.synchronize()
         return logits, ops.launch_counts(), (time.perf_counter() - t0) * 1e3
 
+    def run_a2a(c):
+        """``run`` of the all-to-all dispatch, with its peak memory."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = run(dataclasses.replace(c, moe_a2a=True), mesh)
+        return (*out, torch.cuda.max_memory_allocated())
+
+    def k3_held(c):
+        """One more all-to-all prefill of ``c`` in which each K3 call is
+        held against ``ref.moe_gmm`` on its own inputs (the routing's rows
+        and starts), elementwise at TOLS: a line per call."""
+        kernel, calls = ops.moe_gmm, []
+
+        def held(x, w, rows=None, starts=None):
+            y = kernel(x, w, rows, starts)
+            want = ref.moe_gmm(x, w, rows, starts)
+            tol = TOLS[str(x.dtype).removeprefix("torch.")]
+            calls.append({"E": w.shape[0], "M": x.shape[0],
+                          "D": x.shape[1], "F": w.shape[2],
+                          "ragged": starts is not None,
+                          "live_rows": int(rows.sum()),
+                          "max_abs_err": _err(y, want),
+                          "ok": _within(y, want, tol)})
+            return y
+
+        ops.moe_gmm = held
+        try:
+            with torch.no_grad():
+                make_prefill(dataclasses.replace(c, moe_a2a=True),
+                             mesh=mesh)(params, batch)
+        finally:
+            ops.moe_gmm = kernel
+        return calls
+
     plain, plain_counts, plain_ms = run(cfg, None)
     gather, gather_counts, gather_ms = run(cfg, mesh)
     equal = torch.equal(plain, gather)
     del plain, gather
-    _cast_tree(params, torch.float32)
     # capacity factor E / k: every expert takes every token it is routed
     nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                  / cfg.top_k)
+    gbf, gbf_counts, gbf_ms = run(nodrop, mesh)
+    abf, abf_counts, abf_ms, abf_peak = run_a2a(nodrop)
+    rel_bf16 = _rel(abf, gbf)
+    finite = bool(torch.isfinite(abf).all())
+    k3_calls = k3_held(nodrop)
+    # both dispatches on the plain path (no kernel): how far bf16 alone
+    # moves these logits, beside the kernels' a2a against gather
+    no_kernels = dataclasses.replace(nodrop, attn_impl="plain")
+    pa, pa_counts, _ = run(dataclasses.replace(no_kernels, moe_a2a=True),
+                           mesh)
+    pg, pg_counts, _ = run(no_kernels, mesh)
+    bf16_rel = {"a2a_vs_gather": rel_bf16, "a2a_vs_a2a_plain": _rel(abf, pa),
+                "gather_vs_gather_plain": _rel(gbf, pg),
+                "a2a_plain_vs_gather_plain": _rel(pa, pg)}
+    del gbf, abf, pa, pg
+    _cast_tree(params, torch.float32)
     g32, g32_counts, g32_ms = run(nodrop, mesh)
-    a2a, a2a_counts, a2a_ms = run(
-        dataclasses.replace(nodrop, moe_a2a=True), mesh)
+    a2a, a2a_counts, a2a_ms, a2a_peak = run_a2a(nodrop)
     rel = _rel(a2a, g32)
-    finite = bool(torch.isfinite(a2a).all())
+    finite &= bool(torch.isfinite(a2a).all())
     emit({"phase": "mesh_moe", "arch": cfg.name,
           "reduced": {"n_layers": [configs.get("qwen3_moe_235b").n_layers,
                                    MOE_LAYERS]},
           "B": 1, "T": 1024, "gather_equals_no_mesh": equal,
           "launches": {"no_mesh": plain_counts, "gather": gather_counts,
+                       "gather_bf16_nodrop": gbf_counts,
+                       "a2a_bf16_nodrop": abf_counts,
                        "gather_float32_nodrop": g32_counts,
                        "a2a_float32_nodrop": a2a_counts},
           "prefill_ms": {"no_mesh": plain_ms, "gather": gather_ms,
+                         "gather_bf16_nodrop": gbf_ms,
+                         "a2a_bf16_nodrop": abf_ms,
                          "gather_float32_nodrop": g32_ms,
                          "a2a_float32_nodrop": a2a_ms},
-          "a2a_vs_gather_rel_l2": rel, "tol": LOGIT_REL_TOL["float32"],
+          "a2a_vs_gather_rel_l2": {"bfloat16": rel_bf16, "float32": rel},
+          "bf16_rel_l2": bf16_rel, "a2a_bf16_k3_calls": k3_calls,
+          "tol": {dt: LOGIT_REL_TOL[dt] for dt in ("bfloat16", "float32")},
+          "a2a_peak_memory": {"bfloat16": abf_peak, "float32": a2a_peak},
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     want = {"flash_attention": MOE_LAYERS, "moe_gmm": 3 * MOE_LAYERS}
     for name, counts in (("no mesh", plain_counts),
                          ("gather", gather_counts),
-                         ("gather float32", g32_counts)):
+                         ("gather bf16", gbf_counts),
+                         ("a2a bf16", abf_counts),
+                         ("gather float32", g32_counts),
+                         ("a2a float32", a2a_counts)):
         need({k: v for k, v in counts.items() if v} == want,
              f"MoE prefill {name}: launches {counts}, want {want}")
-    need({k: v for k, v in a2a_counts.items() if v}
-         == {"flash_attention": MOE_LAYERS},
-         f"a2a prefill launches {a2a_counts}")
+    need(not any(pa_counts.values()) and not any(pg_counts.values()),
+         f"the plain path launched {pa_counts} / {pg_counts}")
+    need(len(k3_calls) == 3 * MOE_LAYERS and all(
+        c["ragged"] and c["ok"] for c in k3_calls),
+         f"bf16 a2a prefill: K3 calls against ref.moe_gmm {k3_calls}")
     need(equal, "the gather-dispatch prefill on the mesh differs from the "
                 "prefill without a mesh")
     need(finite, "non-finite a2a logits")
+    need(rel_bf16 <= LOGIT_REL_TOL["bfloat16"],
+         f"bf16 a2a logits rel L2 {rel_bf16} against the gather dispatch")
     need(rel <= LOGIT_REL_TOL["float32"],
          f"a2a logits rel L2 {rel} against the gather dispatch")
+    del params, a2a, g32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_counts = mesh_a2a_grad(torch, dev, mesh, nodrop)
+    return {A2A_BF16: abf_counts,
+            A2A_F32: {k: a2a_counts[k] + grad_counts[k] for k in grad_counts}}
+
+
+def mesh_a2a_grad(torch, dev, mesh, cfg) -> dict:
+    """One float32 gradient of ``loss_fn`` through ``moe_shardmap``'s
+    all-to-all dispatch on ``mesh``: ``cfg`` (no token dropped) at one
+    layer, B=1, T=1024, the kernel path (K2, ragged K3 and their
+    backwards) against the plain path, each leaf by relative L2 at 2e-3
+    as the train phases hold theirs.  Returns the kernel path's
+    launches."""
+    from repro_torch import configs
+    from repro_torch.core.torchstate import tree_leaves
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train import shard_batch, synthetic_batches
+
+    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=1,
+                              moe_a2a=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(c32, torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    batch = shard_batch(None, next(synthetic_batches(c32.vocab, 1, 1024,
+                                                     seed=0)), device=dev)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k = loss_fn(c32, params, batch, mesh=mesh)
+    got = torch.autograd.grad(loss_k, leaves)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    counts, routes = ops.launch_counts(), dict(gmm.bwd_routes)
+    t0 = time.perf_counter()
+    loss_p = loss_fn(dataclasses.replace(c32, attn_impl="plain"), params,
+                     batch, mesh=mesh)
+    want = torch.autograd.grad(loss_p, leaves)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rels = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+    expect = {"moe_gmm": 6, "moe_gmm_bwd": 3, "flash_attention": 2,
+              "flash_attention_bwd": 1}
+    emit({"phase": "mesh_moe_a2a_grad", "arch": c32.name, "layers": 1,
+          "reduced": {"n_layers": [configs.get("qwen3_moe_235b").n_layers,
+                                   1], "why": "float32 parameters "
+                      "and two sets of gradients of one layer at full "
+                      "width on one card"},
+          "dtype": "float32", "B": 1, "T": 1024,
+          "capacity_factor": c32.capacity_factor,
+          "loss": float(loss_k.detach()), "plain_loss": float(loss_p.detach()),
+          "leaves": len(rels), "max_leaf_rel_l2": max(rels), "tol": 2e-3,
+          "launches": counts, "moe_gmm_bwd_routes": routes,
+          "kernel_path_s": kernel_s, "plain_path_s": plain_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    need({k: v for k, v in counts.items() if v} == expect,
+         f"a2a gradient launches {counts}, want {expect}")
+    need(routes == {"wgmma": 0, "tc": 0, "f32": 3},
+         f"a2a gradient: K3 backward routes {routes}, want f32 3")
+    need(max(rels) <= 2e-3, f"a2a gradients: largest leaf rel L2 "
+         f"{max(rels)} > 2e-3")
+    return counts
 
 
 def mesh_serve(torch, dev, mesh) -> None:

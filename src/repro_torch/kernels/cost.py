@@ -14,7 +14,8 @@ kernel made faster keeps the same bound:
   K2 ``flash_attention``   the (query, key) pairs under the causal mask and
                            the window, times 4 H hd (10 for the backward)
   K3 ``moe_gmm``           the live rows of each expert (``rows``) and the
-                           weights of the experts that have any
+                           weights of the experts that have any; ragged
+                           (one packed buffer, ``starts``), each row once
   K4 ``rwkv_scan``         the chunk form's multiply-adds, chunks of 64
   K5 ``rglru_scan``        one multiply-add an element (three backward)
 
@@ -141,36 +142,49 @@ def flash_attention_bwd(B: int, H: int, Hkv: int, T: int, S: int, hd: int,
                 + 4 * B * H * T, name)
 
 
-def _rows(E: int, C: int, rows) -> tuple[int, int]:
-    """(live experts, live rows) of K3: every one without ``rows``."""
+def _rows(E: int, C: int, rows, ragged: bool = False) -> tuple[int, int]:
+    """(live experts, live rows) of K3: every one without ``rows`` (C
+    rows in all when ``ragged``, E C otherwise)."""
     if rows is None:
-        return E, E * C
-    rows = [min(int(n), C) for n in rows]
-    return sum(n > 0 for n in rows), sum(rows)
+        return E, C if ragged else E * C
+    rows = [min(max(int(n), 0), C) for n in rows]
+    return sum(n > 0 for n in rows), min(sum(rows), C) if ragged \
+        else sum(rows)
 
 
-def moe_gmm(E: int, C: int, D: int, F: int, dtype, rows=None) -> Cost:
+def moe_gmm(E: int, C: int, D: int, F: int, dtype, rows=None,
+            ragged: bool = False) -> Cost:
     """K3: the live rows of x (E,C,D) and the weights (D,F) of the live
     experts read, all of y (E,C,F) written (dead rows as zeros), rows (E,)
-    int32 read when given; 2 D F a live row."""
+    int32 read when given; 2 D F a live row.  ``ragged``: x is one packed
+    (C, D) buffer and y (C, F), each row multiplied once, by its expert's
+    weights; rows and starts (E,) int32 read."""
     name = dtype_name(dtype)
     es = ELEM_BYTES[name]
-    live, n_rows = _rows(E, C, rows)
+    live, n_rows = _rows(E, C, rows, ragged)
     return Cost(2 * n_rows * D * F,
-                es * (n_rows * D + live * D * F + E * C * F)
-                + (0 if rows is None else 4 * E), name)
+                es * (n_rows * D + live * D * F + (1 if ragged else E) * C
+                      * F) + _index_bytes(E, rows, ragged), name)
 
 
-def moe_gmm_bwd(E: int, C: int, D: int, F: int, dtype, rows=None) -> Cost:
+def moe_gmm_bwd(E: int, C: int, D: int, F: int, dtype, rows=None,
+                ragged: bool = False) -> Cost:
     """K3's backward: the live rows of x and dy and the live experts' w
     read; all of dx (E,C,D) and dw (E,D,F) written; dx = dy w^T and dw =
-    x^T dy over the live rows."""
+    x^T dy over the live rows.  ``ragged``: x, dy and dx are packed (C, .)
+    buffers, each row counted once."""
     name = dtype_name(dtype)
     es = ELEM_BYTES[name]
-    live, n_rows = _rows(E, C, rows)
+    live, n_rows = _rows(E, C, rows, ragged)
     return Cost(4 * n_rows * D * F,
-                es * (n_rows * D + live * D * F + n_rows * F + E * C * D
-                      + E * D * F) + (0 if rows is None else 4 * E), name)
+                es * (n_rows * D + live * D * F + n_rows * F
+                      + (1 if ragged else E) * C * D + E * D * F)
+                + _index_bytes(E, rows, ragged), name)
+
+
+def _index_bytes(E: int, rows, ragged: bool) -> int:
+    """K3's int32 reads: rows and starts (E,) ragged, rows when given."""
+    return 8 * E if ragged else 0 if rows is None else 4 * E
 
 
 def _chunks(T: int) -> list[int]:

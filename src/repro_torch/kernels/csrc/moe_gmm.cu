@@ -12,6 +12,18 @@
 // C tile lies past rows[e] writes its zeros and exits after one load.
 // rows == null is the Pallas kernel's function exactly.
 //
+// Ragged (starts (E,) int32 beside rows: the all-to-all MoE dispatch's
+// form): x is one packed (M, D) buffer sorted by expert, expert e owning
+// its rows starts[e] .. starts[e] + rows[e], and y is (M, F); each row is
+// multiplied once, by its own expert's weights, where the reference masks
+// every row through every local expert.  The grid is ceil(M / BM) + E row
+// tiles by the F tiles, enough for any counts; each block finds its
+// expert and tile from the counts on the device (ragged.cuh) and the
+// blocks past the last tile exit.  Loads past a segment's end are zero
+// filled (those rows are the next expert's) and stores stop there; rows of
+// no expert are never written (the wrapper allocates y as zeros).  The
+// tile height follows the mean rows an expert, ceil(M / E).
+//
 // What bounds it on the H100: bytes.  Each expert's w is read once per C
 // tile and used for only C rows; at the serving shapes (C = 4 in decode,
 // C = 80 in a T = 1024 prefill) the flops per weight byte are 4 and 80,
@@ -57,6 +69,7 @@
 #include <stdint.h>
 
 #include "mma_sync.cuh"
+#include "ragged.cuh"
 
 namespace {
 
@@ -89,6 +102,47 @@ __device__ __forceinline__ int live_rows(const int* rows, int e, int C) {
   return rows ? min(max(rows[e], 0), C) : C;
 }
 
+// Where a block works: expert e, its first row c0 among the expert's rows
+// and first column f0, the offsets of the expert's row 0 in x and y, the
+// expert's live rows nv and the rows cy of y that are the expert's (C,
+// or the segment's rows when ragged).  Dense: blocks (F tiles, C tiles,
+// E).  Ragged (starts): blocks (ragged_tile's tiles, F tiles), the rows
+// of expert e starting at row starts[e] of the packed x and y; false for
+// a block past the last tile.  RAGGED is a template argument, so the
+// dense kernels carry none of the ragged code (nor its registers: a
+// runtime branch took the bf16 prefill tile, MT = 5, from 2 blocks a SM
+// to 1).
+struct Place {
+  int e, c0, f0, nv, cy;
+  long long xo, yo;
+};
+
+template <bool RAGGED>
+__device__ __forceinline__ bool place(Place& p, const int* rows,
+                                      const int* starts, int E, int C, int BM,
+                                      int BN, long long x_se, long long x_sc,
+                                      long long y_se, long long y_sc) {
+  if constexpr (RAGGED) {
+    const int2 t = ragged_tile(rows, starts, E, C, BM, blockIdx.x);
+    if (t.x < 0) return false;
+    const Segment sg = segment(rows, starts, t.x, C);
+    p = {t.x, t.y, (int)blockIdx.y * BN, sg.rows, sg.rows,
+         sg.start * x_sc, sg.start * y_sc};
+  } else {
+    const int e = blockIdx.z;
+    p = {e, (int)blockIdx.y * BM, (int)blockIdx.x * BN, live_rows(rows, e, C),
+         C, e * x_se, e * y_se};
+  }
+  return true;
+}
+
+// The grid of a launch: dense (F tiles, C tiles, E); ragged (C = M packed
+// rows) ceil(M / BM) + E row tiles by F tiles.
+inline dim3 grid_of(bool ragged, int E, int C, int F, int BM, int BN) {
+  return ragged ? dim3((C + BM - 1) / BM + E, (F + BN - 1) / BN, 1)
+                : dim3((F + BN - 1) / BN, (C + BM - 1) / BM, E);
+}
+
 // A block with no live row writes zeros over its (rows c0.., columns f0..)
 // tile of y and reads no weight.
 template <typename T>
@@ -110,12 +164,13 @@ constexpr size_t smem_bytes() {
 // RS: thread groups across the rows of the tile; TM: rows per thread;
 // BK: depth of one stage.  BM = RS * TM rows per block; KS = 16 / RS groups
 // split each stage's depth.
-template <int RS, int TM, int BK>
+template <int RS, int TM, int BK, bool RAGGED>
 __global__ void __launch_bounds__(kThreads)
 moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ y, const int* __restrict__ rows, int C,
-               int D, int F, long long x_se, long long x_sc, long long w_se,
-               long long w_sd, long long y_se, long long y_sc) {
+               float* __restrict__ y, const int* __restrict__ rows,
+               const int* __restrict__ starts, int E, int C, int D, int F,
+               long long x_se, long long x_sc, long long w_se, long long w_sd,
+               long long y_se, long long y_sc) {
   constexpr int KS = 16 / RS;
   constexpr int BM = RS * TM;
   constexpr int XST = BM + 1;                 // x tile row stride (banks)
@@ -129,16 +184,18 @@ moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* ws = smem;                           // [BK][kBN]
   float* xs = ws + BK * kBN;                  // [BK][XST], k-major
 
-  const int e = blockIdx.z;
-  const int c0 = blockIdx.y * BM;
-  const int f0 = blockIdx.x * kBN;
+  Place pl;
+  if (!place<RAGGED>(pl, rows, starts, E, C, BM, kBN, x_se, x_sc, y_se,
+                     y_sc))
+    return;
+  const int c0 = pl.c0, f0 = pl.f0, cy = pl.cy;
   const int tid = threadIdx.x;
-  const float* xe = x + e * x_se;
-  const float* we = w + e * w_se;
-  const long long yb = e * y_se;
-  const int nv = live_rows(rows, e, C);       // rows >= nv are zeros
+  const float* xe = x + pl.xo;
+  const float* we = w + pl.e * w_se;
+  const long long yb = pl.yo;
+  const int nv = pl.nv;                       // rows >= nv are zeros
   if (c0 >= nv) {
-    zero_tile(y, yb, y_sc, c0, BM, C, f0, kBN, F);
+    zero_tile(y, yb, y_sc, c0, BM, cy, f0, kBN, F);
     return;
   }
 
@@ -226,7 +283,7 @@ moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int row = c0 + rg * TM + i;
-      if (row >= C) continue;
+      if (row >= cy) continue;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int col = f0 + (c < 4 ? 4 * cg + c : 64 + 4 * cg + c - 4);
@@ -252,46 +309,64 @@ moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float s = 0.f;
 #pragma unroll
       for (int g = 0; g < KS; ++g) s += red[g * BM * kBN + o];
-      if (row < C && col < F)
+      if (row < cy && col < F)
         y[yb + row * y_sc + col] = row < nv ? s : 0.f;
     }
   }
 }
 
-template <int RS, int TM, int BK>
-int launch(const void* x, const void* w, void* y, const int* rows, int E,
-           int C, int D, int F, const long long* st, cudaStream_t stream) {
+// The arguments every launch passes on: x, w, y, rows, starts (null:
+// dense), E, C, D, F, the six strides and the stream.
+struct Args {
+  const void* x;
+  const void* w;
+  void* y;
+  const int* rows;
+  const int* starts;
+  int E, C, D, F;
+  const long long* st;
+  cudaStream_t s;
+};
+
+template <int RS, int TM, int BK, bool RAGGED>
+int launch_as(const Args& a) {
   constexpr int BM = RS * TM;
   constexpr size_t smem = smem_bytes<RS, TM, BK>();
   static unsigned done = 0;
-  cudaError_t err =
-      smem_once((const void*)moe_gmm_kernel<RS, TM, BK>, smem, &done);
+  cudaError_t err = smem_once(
+      (const void*)moe_gmm_kernel<RS, TM, BK, RAGGED>, smem, &done);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((F + kBN - 1) / kBN, (C + BM - 1) / BM, E);
-  moe_gmm_kernel<RS, TM, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(y), rows, C, D, F, st[0], st[1], st[2], st[3],
-      st[4], st[5]);
+  const long long* st = a.st;
+  moe_gmm_kernel<RS, TM, BK, RAGGED>
+      <<<grid_of(RAGGED, a.E, a.C, a.F, BM, kBN), kThreads, smem, a.s>>>(
+          static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+          static_cast<float*>(a.y), a.rows, a.starts, a.E, a.C, a.D, a.F,
+          st[0], st[1], st[2], st[3], st[4], st[5]);
   return (int)cudaGetLastError();
 }
 
-// float32: the tile for C rows, see the design note.
-int dispatch_f32(const void* x, const void* w, void* y, const int* rows,
-                 int E, int C, int D, int F, const long long* st,
-                 cudaStream_t s) {
-  if (C <= 4) return launch<1, 4, 64>(x, w, y, rows, E, C, D, F, st, s);
-  if (C <= 8) return launch<2, 4, 64>(x, w, y, rows, E, C, D, F, st, s);
-  if (C <= 16) return launch<4, 4, 64>(x, w, y, rows, E, C, D, F, st, s);
-  if (C <= 32) return launch<8, 4, 64>(x, w, y, rows, E, C, D, F, st, s);
+template <int RS, int TM, int BK>
+int launch(const Args& a) {
+  return a.starts ? launch_as<RS, TM, BK, true>(a)
+                  : launch_as<RS, TM, BK, false>(a);
+}
+
+// float32: the tile for R rows an expert (C, or ragged the mean
+// ceil(M / E)), see the design note.
+int dispatch_f32(const Args& a, int R) {
+  if (R <= 4) return launch<1, 4, 64>(a);
+  if (R <= 8) return launch<2, 4, 64>(a);
+  if (R <= 16) return launch<4, 4, 64>(a);
+  if (R <= 32) return launch<8, 4, 64>(a);
   int best = 4;                              // rows per thread: BM = 16 TM
   for (int tm = 5; tm <= 6; ++tm) {
-    const int pad = (C + 16 * tm - 1) / (16 * tm) * 16 * tm;
-    const int best_pad = (C + 16 * best - 1) / (16 * best) * 16 * best;
+    const int pad = (R + 16 * tm - 1) / (16 * tm) * 16 * tm;
+    const int best_pad = (R + 16 * best - 1) / (16 * best) * 16 * best;
     if (pad < best_pad) best = tm;
   }
-  if (best == 5) return launch<16, 5, 32>(x, w, y, rows, E, C, D, F, st, s);
-  if (best == 6) return launch<16, 6, 32>(x, w, y, rows, E, C, D, F, st, s);
-  return launch<16, 4, 32>(x, w, y, rows, E, C, D, F, st, s);
+  if (best == 5) return launch<16, 5, 32>(a);
+  if (best == 6) return launch<16, 6, 32>(a);
+  return launch<16, 4, 32>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -309,13 +384,13 @@ constexpr size_t tc_smem() {
 }
 
 // MT m16 tiles of rows, W warps of 32 columns each.
-template <int MT, int W>
+template <int MT, int W, bool RAGGED>
 __global__ void __launch_bounds__(32 * W)
 moe_gmm_tc(const __nv_bfloat16* __restrict__ x,
            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ y,
-           const int* __restrict__ rows, int C, int D, int F, long long x_se,
-           long long x_sc, long long w_se, long long w_sd, long long y_se,
-           long long y_sc) {
+           const int* __restrict__ rows, const int* __restrict__ starts, int E,
+           int C, int D, int F, long long x_se, long long x_sc, long long w_se,
+           long long w_sd, long long y_se, long long y_sc) {
   constexpr int BM = 16 * MT;
   constexpr int NT = 32 * W;          // threads
   constexpr int BN = 32 * W;          // columns of F per block
@@ -327,17 +402,19 @@ moe_gmm_tc(const __nv_bfloat16* __restrict__ x,
   extern __shared__ uint4 smem_tc[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);
 
-  const int e = blockIdx.z, c0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
-  const long long yb = e * y_se;
-  const int nv = live_rows(rows, e, C);
+  Place pl;
+  if (!place<RAGGED>(pl, rows, starts, E, C, BM, BN, x_se, x_sc, y_se, y_sc))
+    return;
+  const int c0 = pl.c0, f0 = pl.f0, cy = pl.cy, nv = pl.nv;
+  const long long yb = pl.yo;
   if (c0 >= nv) {
-    zero_tile(y, yb, y_sc, c0, BM, C, f0, BN, F);
+    zero_tile(y, yb, y_sc, c0, BM, cy, f0, BN, F);
     return;
   }
   const int nrow = min(BM, nv - c0);          // live rows of this tile
   const int live_mt = (nrow + 15) / 16;
-  const __nv_bfloat16* xb = x + e * x_se + (long long)c0 * x_sc;
-  const __nv_bfloat16* wb = w + e * w_se + f0;
+  const __nv_bfloat16* xb = x + pl.xo + (long long)c0 * x_sc;
+  const __nv_bfloat16* wb = w + pl.e * w_se + f0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;    // ldmatrix: matrix, its row
@@ -419,7 +496,7 @@ moe_gmm_tc(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = mt * 16 + g + hh * 8;
-      if (c0 + r >= C) continue;
+      if (c0 + r >= cy) continue;
       __nv_bfloat16* yr = y + yb + (long long)(c0 + r) * y_sc;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
@@ -437,39 +514,46 @@ moe_gmm_tc(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-template <int MT, int W = kTcWarps>
-int launch_tc(const void* x, const void* w, void* y, const int* rows, int E,
-              int C, int D, int F, const long long* st, cudaStream_t stream) {
+template <int MT, int W, bool RAGGED>
+int launch_tc_as(const Args& a) {
   static unsigned done = 0;
   constexpr size_t smem = tc_smem<MT, W>();
-  cudaError_t err = smem_once((const void*)moe_gmm_tc<MT, W>, smem, &done);
+  cudaError_t err =
+      smem_once((const void*)moe_gmm_tc<MT, W, RAGGED>, smem, &done);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((F + 32 * W - 1) / (32 * W), (C + 16 * MT - 1) / (16 * MT), E);
-  moe_gmm_tc<MT, W><<<grid, 32 * W, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(y),
-      rows, C, D, F, st[0], st[1], st[2], st[3], st[4], st[5]);
+  const long long* st = a.st;
+  moe_gmm_tc<MT, W, RAGGED>
+      <<<grid_of(RAGGED, a.E, a.C, a.F, 16 * MT, 32 * W), 32 * W, smem,
+         a.s>>>(static_cast<const __nv_bfloat16*>(a.x),
+                static_cast<const __nv_bfloat16*>(a.w),
+                static_cast<__nv_bfloat16*>(a.y), a.rows, a.starts, a.E, a.C,
+                a.D, a.F, st[0], st[1], st[2], st[3], st[4], st[5]);
   return (int)cudaGetLastError();
 }
 
-// bf16: C rows in m16 tiles.  C <= 32 (decode) in one block of 4 warps,
-// so the few live experts still spread over many blocks; C > 32 in
-// ceil(C / 16) tiles of 8 warps up to 8 tiles, else split evenly over the
-// fewest blocks of at most 8 (3..8).
-int dispatch_tc(const void* x, const void* w, void* y, const int* rows,
-                int E, int C, int D, int F, const long long* st,
-                cudaStream_t s) {
-  const int m16 = (C + 15) / 16;
-  if (m16 == 1) return launch_tc<1, 4>(x, w, y, rows, E, C, D, F, st, s);
-  if (m16 == 2) return launch_tc<2, 4>(x, w, y, rows, E, C, D, F, st, s);
+template <int MT, int W = kTcWarps>
+int launch_tc(const Args& a) {
+  return a.starts ? launch_tc_as<MT, W, true>(a)
+                  : launch_tc_as<MT, W, false>(a);
+}
+
+// bf16: R rows an expert (C, or ragged the mean ceil(M / E)) in m16
+// tiles.  R <= 32 (decode) in one block of 4 warps, so the few live
+// experts still spread over many blocks; R > 32 in ceil(R / 16) tiles of
+// 8 warps up to 8 tiles, else split evenly over the fewest blocks of at
+// most 8 (3..8).
+int dispatch_tc(const Args& a, int R) {
+  const int m16 = (R + 15) / 16;
+  if (m16 == 1) return launch_tc<1, 4>(a);
+  if (m16 == 2) return launch_tc<2, 4>(a);
   const int nb = (m16 + kTcMaxMT - 1) / kTcMaxMT;
   switch ((m16 + nb - 1) / nb) {
-    case 3: return launch_tc<3>(x, w, y, rows, E, C, D, F, st, s);
-    case 4: return launch_tc<4>(x, w, y, rows, E, C, D, F, st, s);
-    case 5: return launch_tc<5>(x, w, y, rows, E, C, D, F, st, s);
-    case 6: return launch_tc<6>(x, w, y, rows, E, C, D, F, st, s);
-    case 7: return launch_tc<7>(x, w, y, rows, E, C, D, F, st, s);
-    case 8: return launch_tc<8>(x, w, y, rows, E, C, D, F, st, s);
+    case 3: return launch_tc<3>(a);
+    case 4: return launch_tc<4>(a);
+    case 5: return launch_tc<5>(a);
+    case 6: return launch_tc<6>(a);
+    case 7: return launch_tc<7>(a);
+    case 8: return launch_tc<8>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -477,19 +561,25 @@ int dispatch_tc(const void* x, const void* w, void* y, const int* rows,
 }  // namespace
 
 // elem_bytes: 4 = float32, 2 = bfloat16 (x, w and y all of it).  rows: null,
-// or (E,) int32 on the device, the live rows of each expert.  strides
-// (elements): x_se, x_sc, w_se, w_sd, y_se, y_sc; the last dimension of
-// every tensor has unit stride.  Returns a cudaError_t (0 on success).
+// or (E,) int32 on the device, the live rows of each expert.  starts: null
+// (dense: x (E, C, D), y (E, C, F)), or (E,) int32 on the device with rows
+// (ragged: x (C, D) and y (C, F) packed, expert e's rows starts[e] ..
+// starts[e] + rows[e], not overlapping; y's rows of no expert are left as
+// they are, so the caller allocates y as zeros).  strides (elements):
+// x_se, x_sc, w_se, w_sd, y_se, y_sc (x_se, y_se unused ragged); the last
+// dimension of every tensor has unit stride.  Returns a cudaError_t (0 on
+// success).
 extern "C" int repro_moe_gmm(int elem_bytes, const void* x, const void* w,
-                             void* y, const void* rows, int E, int C, int D,
-                             int F, const long long* strides, void* stream) {
-  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535)
+                             void* y, const void* rows, const void* starts,
+                             int E, int C, int D, int F,
+                             const long long* strides, void* stream) {
+  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 || (starts && !rows))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* r = static_cast<const int*>(rows);
-  if (elem_bytes == 4)
-    return dispatch_f32(x, w, y, r, E, C, D, F, strides, s);
-  if (elem_bytes == 2)
-    return dispatch_tc(x, w, y, r, E, C, D, F, strides, s);
+  const Args a{x, w, y, static_cast<const int*>(rows),
+               static_cast<const int*>(starts), E, C, D, F, strides,
+               static_cast<cudaStream_t>(stream)};
+  const int R = starts ? (C + E - 1) / E : C;
+  if (elem_bytes == 4) return dispatch_f32(a, R);
+  if (elem_bytes == 2) return dispatch_tc(a, R);
   return (int)cudaErrorInvalidValue;
 }

@@ -74,6 +74,14 @@
 // w).  m16 tiles wholly past the live rows skip their products; a block
 // wholly past them writes zeros and reads nothing.
 //
+// Ragged (starts beside rows: x (M, D), dy (M, F) and dx (M, D) packed,
+// expert e owning the rows starts[e] .. + rows[e]): dx's rows are tiled
+// as the forward's (ragged_tile in ragged.cuh), and dw[e] sums over the
+// expert's segment only, the loads past its end zero filled (those rows
+// are the next expert's data, not zeros).  A TMA box cannot stop at a row
+// count known only on the device, so ragged calls take gmm_bwd_tc in
+// bf16 and gmm_bwd_f32 in float32, never gmm_bwd_wgmma.
+//
 // float32 (gmm_bwd_f32): CUDA cores, as the forward's float32 kernel, so
 // float32 gradients keep full float32 products.  A 256-thread block owns a
 // 64 x 64 tile of Y, each thread 4 x 4, and walks K in stages of 16 loaded
@@ -84,6 +92,7 @@
 
 #include "hopper.cuh"           // mbarriers, TMA, wgmma, tensor maps
 #include "mma_sync.cuh"
+#include "ragged.cuh"
 
 namespace {
 
@@ -91,19 +100,77 @@ namespace {
 // k * lda + m : m * lda + k), element (k, n) of B[e] at b + e * b_se +
 // (B_NK ? n * ldb + k : k * ldb + n), Y[e] row-major with row stride ldy.
 // Rows m >= mlim of Y are zeros and only k < klim is summed; mlim and klim
-// are M and K, or rows[e] where rows_m / rows_k say so.
+// are M and K, or rows[e] where rows_m / rows_k say so.  Ragged (starts
+// not null): the dimension rows_m / rows_k names is a packed one of M / K
+// rows in which expert e owns the segment starts[e] .. + rows[e]; along M
+// (dx) A is row-major and A and Y start at the segment's first row, along
+// K (dw) A is M-major and A and B start there, and the a_se / b_se / y_se
+// of a packed operand are unused.
 struct Gemm {
   const void* a;
   const void* b;
   void* y;
   const int* rows;
-  int M, N, K;
+  const int* starts;
+  int E, M, N, K;
   bool rows_m, rows_k;
   long long a_se, lda, b_se, ldb, y_se, ldy;
 };
 
 __device__ __forceinline__ int live(const int* rows, int e, int n) {
   return min(max(rows[e], 0), n);
+}
+
+// How a kernel's M and K are laid out: dense (every expert's own (M, K)
+// operands), or ragged along M (dx: Y's rows are the packed ones) or
+// along K (dw: the sum runs over the packed rows).  A template argument,
+// so the dense kernels carry none of the ragged code or its shared memory
+// (as the forward's RAGGED).
+enum class Ragged { kNo, kM, kK };
+
+// Where a block of a bm x bn tile of Y works: expert e, its first row m0
+// (within the expert's segment when M is ragged) and column n0, the
+// offsets of A, B and Y for the expert, the rows of Y that are the
+// expert's (mrows: M, or the segment's), the live rows mlim along M and
+// klim along K.  Blocks: (N tiles, M tiles, E), or ragged along M
+// (ragged_tile's tiles, N tiles); false for a block past the last tile.
+struct Tile {
+  int e, m0, n0, mrows, mlim, klim;
+  long long ao, bo, yo;
+};
+
+template <Ragged R>
+__device__ __forceinline__ bool tile_of(Tile& t, const Gemm& g, int bm,
+                                        int bn) {
+  if constexpr (R == Ragged::kM) {
+    const int2 r = ragged_tile(g.rows, g.starts, g.E, g.M, bm, blockIdx.x);
+    if (r.x < 0) return false;
+    const Segment sg = segment(g.rows, g.starts, r.x, g.M);
+    t = {r.x, r.y, (int)blockIdx.y * bn, sg.rows, sg.rows, g.K,
+         sg.start * g.lda, r.x * g.b_se, sg.start * g.ldy};
+    return true;
+  }
+  const int e = blockIdx.z;
+  t = {e, (int)blockIdx.y * bm, (int)blockIdx.x * bn, g.M,
+       g.rows_m ? live(g.rows, e, g.M) : g.M,
+       g.rows_k ? live(g.rows, e, g.K) : g.K,
+       e * g.a_se, e * g.b_se, e * g.y_se};
+  if constexpr (R == Ragged::kK) {  // the sum runs over the segment's rows
+    const Segment sg = segment(g.rows, g.starts, e, g.K);
+    t.klim = sg.rows;
+    t.ao = sg.start * g.lda;
+    t.bo = sg.start * g.ldb;
+  }
+  return true;
+}
+
+// The grid of a bm x bn tiling of Y: (N tiles, M tiles, E), or ragged
+// along M ceil(M / bm) + E row tiles by N tiles.
+template <Ragged R>
+inline dim3 grid_of(const Gemm& g, int bm, int bn) {
+  return R == Ragged::kM
+             ? dim3((g.M + bm - 1) / bm + g.E, (g.N + bn - 1) / bn, 1)
+             : dim3((g.N + bn - 1) / bn, (g.M + bm - 1) / bm, g.E);
 }
 
 // ---------------------------------------------------------------------------
@@ -132,32 +199,31 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* s,
   }
 }
 
-template <bool A_KM, bool B_NK>
+template <bool A_KM, bool B_NK, Ragged R>
 __global__ void __launch_bounds__(kThreads)
 gmm_bwd_tc(Gemm g) {
   extern __shared__ uint4 smem_tc[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  const int e = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int mlim = g.rows_m ? live(g.rows, e, g.M) : g.M;
-  const int klim = g.rows_k ? live(g.rows, e, g.K) : g.K;
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(g.y) + e * g.y_se;
+  Tile tl;
+  if (!tile_of<R>(tl, g, kBM, kBN)) return;
+  const int m0 = tl.m0, n0 = tl.n0, M = tl.mrows;
+  const int mlim = tl.mlim, klim = tl.klim;
+  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(g.y) + tl.yo;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
   const int mi = lane >> 3, mr = lane & 7;    // ldmatrix: matrix, its row
   const int wm = warp >> 2, wn = warp & 3;    // 2 x 4 warps of 64 x 32
 
   if (m0 >= mlim) {                           // no live row: zeros
-    const int nr = min(kBM, g.M - m0), nc = min(kBN, g.N - n0);
+    const int nr = min(kBM, M - m0), nc = min(kBN, g.N - n0);
     for (int i = tid; i < nr * nc; i += kThreads)
       y[(long long)(m0 + i / nc) * g.ldy + n0 + i % nc] =
           __float2bfloat16(0.f);
     return;
   }
   const int live_mt = (min(kBM, mlim - m0) - wm * 64 + 15) / 16;
-  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(g.a) +
-                           e * g.a_se;
-  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(g.b) +
-                           e * g.b_se;
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(g.a) + tl.ao;
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(g.b) + tl.bo;
 
   auto load = [&](int kt) {
     __nv_bfloat16* as = ring + (kt % kStages) * kStageEl;
@@ -242,7 +308,7 @@ gmm_bwd_tc(Gemm g) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = m0 + wm * 64 + mt * 16 + gq + hh * 8;
-      if (row >= g.M) continue;
+      if (row >= M) continue;
       __nv_bfloat16* yr = y + (long long)row * g.ldy;
       const bool on = row < mlim;
 #pragma unroll
@@ -267,17 +333,18 @@ gmm_bwd_tc(Gemm g) {
 constexpr int kFT = 64;        // tile of Y: kFT x kFT
 constexpr int kFK = 16;        // depth of a stage
 
-template <bool A_KM, bool B_NK>
+template <bool A_KM, bool B_NK, Ragged R>
 __global__ void __launch_bounds__(256)
 gmm_bwd_f32(Gemm g) {
   __shared__ __align__(16) float As[kFK][kFT];   // [k][m]
   __shared__ __align__(16) float Bs[kFK][kFT];   // [k][n]
-  const int e = blockIdx.z, m0 = blockIdx.y * kFT, n0 = blockIdx.x * kFT;
-  const int mlim = g.rows_m ? live(g.rows, e, g.M) : g.M;
-  const int klim = g.rows_k ? live(g.rows, e, g.K) : g.K;
-  const float* a = static_cast<const float*>(g.a) + e * g.a_se;
-  const float* b = static_cast<const float*>(g.b) + e * g.b_se;
-  float* y = static_cast<float*>(g.y) + e * g.y_se;
+  Tile tl;
+  if (!tile_of<R>(tl, g, kFT, kFT)) return;
+  const int m0 = tl.m0, n0 = tl.n0, M = tl.mrows;
+  const int mlim = tl.mlim, klim = tl.klim;
+  const float* a = static_cast<const float*>(g.a) + tl.ao;
+  const float* b = static_cast<const float*>(g.b) + tl.bo;
+  float* y = static_cast<float*>(g.y) + tl.yo;
   const int tid = threadIdx.x;
   const int tm = tid / 16, tn = tid % 16;     // rows 4 tm.., columns 4 tn..
   float acc[4][4] = {};
@@ -314,7 +381,7 @@ gmm_bwd_f32(Gemm g) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + 4 * tm + i;
-    if (row >= g.M) continue;
+    if (row >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + 4 * tn + j;
@@ -511,20 +578,27 @@ int launch_wgmma(const void* x, const void* w, const void* dy, const Gemm& gx,
   return (int)cudaGetLastError();
 }
 
-template <bool A_KM, bool B_NK>
-int launch(int elem_bytes, const Gemm& g, int E, cudaStream_t s) {
+template <bool A_KM, bool B_NK, Ragged R>
+int launch_as(int elem_bytes, const Gemm& g, cudaStream_t s) {
   if (elem_bytes == 2) {
     static unsigned done = 0;
-    cudaError_t err = smem_once((const void*)gmm_bwd_tc<A_KM, B_NK>, kSmemTc,
-                                &done);
+    cudaError_t err = smem_once((const void*)gmm_bwd_tc<A_KM, B_NK, R>,
+                                kSmemTc, &done);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, E);
-    gmm_bwd_tc<A_KM, B_NK><<<grid, kThreads, kSmemTc, s>>>(g);
+    gmm_bwd_tc<A_KM, B_NK, R>
+        <<<grid_of<R>(g, kBM, kBN), kThreads, kSmemTc, s>>>(g);
   } else {
-    const dim3 grid((g.N + kFT - 1) / kFT, (g.M + kFT - 1) / kFT, E);
-    gmm_bwd_f32<A_KM, B_NK><<<grid, 256, 0, s>>>(g);
+    gmm_bwd_f32<A_KM, B_NK, R><<<grid_of<R>(g, kFT, kFT), 256, 0, s>>>(g);
   }
   return (int)cudaGetLastError();
+}
+
+// dx (A row-major) tiles the packed rows, dw (A M-major) sums over them.
+template <bool A_KM, bool B_NK>
+int launch(int elem_bytes, const Gemm& g, cudaStream_t s) {
+  constexpr Ragged r = A_KM ? Ragged::kK : Ragged::kM;
+  return g.starts ? launch_as<A_KM, B_NK, r>(elem_bytes, g, s)
+                  : launch_as<A_KM, B_NK, Ragged::kNo>(elem_bytes, g, s);
 }
 
 }  // namespace
@@ -532,28 +606,34 @@ int launch(int elem_bytes, const Gemm& g, int E, cudaStream_t s) {
 // elem_bytes: 4 = float32, 2 = bfloat16 (x, w, dy, dx and dw all of it).
 // wgmma: 1 takes the TMA / wgmma kernel (bf16, every base and every
 // stride but the unit one 16-byte aligned), 0 the mma.sync or float32 one.
-// rows: null, or (E,) int32 on the device.  strides (elements): x_se,
-// x_sc, w_se, w_sd, dy_se, dy_sc, dx_se, dx_sc, dw_se, dw_sd; the last
-// dimension of every tensor has unit stride.  Two launches (dx, then dw).
-// Returns a cudaError_t (0 on success).
+// rows: null, or (E,) int32 on the device.  starts: null (dense), or (E,)
+// int32 on the device with rows (ragged: x (C, D), dy (C, F) and dx (C, D)
+// packed, expert e's rows starts[e] .. + rows[e], not overlapping; dx's
+// rows of no expert are left as they are, so the caller allocates dx as
+// zeros; the mma.sync or float32 kernels only, wgmma = 0).  strides
+// (elements): x_se, x_sc, w_se, w_sd, dy_se, dy_sc, dx_se, dx_sc, dw_se,
+// dw_sd; the last dimension of every tensor has unit stride.  Two launches
+// (dx, then dw).  Returns a cudaError_t (0 on success).
 extern "C" int repro_moe_gmm_bwd(int elem_bytes, int wgmma, const void* x,
                                  const void* w, const void* dy,
-                                 const void* rows, void* dx, void* dw, int E,
-                                 int C, int D, int F, const long long* st,
-                                 void* stream) {
+                                 const void* rows, const void* starts,
+                                 void* dx, void* dw, int E, int C, int D,
+                                 int F, const long long* st, void* stream) {
   if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 ||
-      (elem_bytes != 2 && elem_bytes != 4) || (wgmma && elem_bytes != 2))
+      (elem_bytes != 2 && elem_bytes != 4) || (wgmma && elem_bytes != 2) ||
+      (starts && (!rows || wgmma)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* r = static_cast<const int*>(rows);
+  const int* sp = static_cast<const int*>(starts);
   // dx[e] (C x D) = dy[e] (C x F) @ w[e]^T
-  const Gemm gx{dy, w, dx, r, C, D, F, r != nullptr, false,
+  const Gemm gx{dy, w, dx, r, sp, E, C, D, F, r != nullptr, false,
                 st[4], st[5], st[2], st[3], st[6], st[7]};
   // dw[e] (D x F) = x[e]^T (D x C) @ dy[e]
-  const Gemm gw{x, dy, dw, r, D, F, C, false, r != nullptr,
+  const Gemm gw{x, dy, dw, r, sp, E, D, F, C, false, r != nullptr,
                 st[0], st[1], st[4], st[5], st[8], st[9]};
   if (wgmma) return launch_wgmma(x, w, dy, gx, gw, E, C, D, F, st, s);
-  const int err = launch<false, true>(elem_bytes, gx, E, s);
+  const int err = launch<false, true>(elem_bytes, gx, s);
   if (err) return err;
-  return launch<true, false>(elem_bytes, gw, E, s);
+  return launch<true, false>(elem_bytes, gw, s);
 }

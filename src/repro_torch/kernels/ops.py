@@ -50,13 +50,15 @@ def decode_attention(q, k, v, lengths):
     return ref.decode_attention(q, k, v, lengths)
 
 
-def moe_gmm(x, w, rows=None):
+def moe_gmm(x, w, rows=None, starts=None):
     """x: (E,C,D); w: (E,D,F) -> (E,C,F) in x.dtype, summed in float32;
-    rows (E,) int32 or None: rows c >= rows[e] are zeros; differentiable on
-    both devices (K3's backward kernel on the card)."""
+    rows (E,) int32 or None: rows c >= rows[e] are zeros.  Ragged, with
+    starts (E,) int32 beside rows: x (M,D) packed, expert e's rows
+    starts[e] .. + rows[e], y (M,F).  Differentiable on both devices (K3's
+    backward kernel on the card)."""
     if _on(x) == "cuda":
-        return _gmm.moe_gmm(x, w, rows)
-    return ref.moe_gmm(x, w, rows)
+        return _gmm.moe_gmm(x, w, rows, starts)
+    return ref.moe_gmm(x, w, rows, starts)
 
 
 def rwkv_scan(r, k, v, logw, u, S0=None):

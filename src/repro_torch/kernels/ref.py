@@ -83,9 +83,33 @@ def decode_attention(q, k, v, lengths):
     return o.reshape(B, H, hd).to(q.dtype)
 
 
-def moe_gmm(x, w, rows=None):
+def _segments(rows, starts, M: int):
+    """(E, M) bool: row i of a packed buffer of M rows belongs to expert e
+    when starts[e] <= i < starts[e] + rows[e], the start clamped into
+    [0, M] and the count into [0, M - start] (as K3 reads them)."""
+    s = starts.long().clamp(0, M)
+    end = s + torch.minimum(rows.long().clamp_min(0), M - s)
+    i = torch.arange(M, device=rows.device)
+    return (i[None, :] >= s[:, None]) & (i[None, :] < end[:, None])
+
+
+def moe_gmm(x, w, rows=None, starts=None):
     """x: (E,C,D); w: (E,D,F) -> (E,C,F): the products in float32, cast
-    to x.dtype.  With ``rows`` (E,) int, rows c >= rows[e] are zeros."""
+    to x.dtype.  With ``rows`` (E,) int, rows c >= rows[e] are zeros.
+
+    Ragged, with ``starts`` (E,) int beside ``rows``: x is one packed
+    (M, D) buffer whose rows starts[e] .. starts[e] + rows[e] (segments
+    that do not overlap) are expert e's, and y is (M, F): x @ w[e] on
+    those rows, zeros on rows of no expert.  A masked loop over the
+    experts, with static shapes: each expert multiplies every row."""
+    if starts is not None:
+        seg = _segments(rows, starts, x.shape[0])
+        xf = x.float()
+        y = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32,
+                        device=x.device)
+        for e in range(w.shape[0]):
+            y = torch.where(seg[e][:, None], xf @ w[e].float(), y)
+        return y.to(x.dtype)
     y = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
     if rows is None:
         return y
@@ -93,11 +117,23 @@ def moe_gmm(x, w, rows=None):
     return torch.where(live[..., None], y, 0)
 
 
-def moe_gmm_backward(x, w, dy, rows=None):
+def moe_gmm_backward(x, w, dy, rows=None, starts=None):
     """The gradients of ``moe_gmm`` by the explicit formula K3's backward
     computes, in float32: with dy zeroed on the rows c >= rows[e] (they
     pass no gradient), dx = dy w^T and dw = x^T dy.  Returns (dx (E,C,D)
-    in x.dtype, dw (E,D,F) in w.dtype)."""
+    in x.dtype, dw (E,D,F) in w.dtype).  Ragged (``starts``): dx (M, D)
+    is dy w[e]^T on expert e's rows and zeros on rows of no expert, and
+    dw[e] = x^T dy over expert e's rows only."""
+    if starts is not None:
+        seg = _segments(rows, starts, x.shape[0])
+        xf, dyf = x.float(), dy.float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = []
+        for e in range(w.shape[0]):
+            d = torch.where(seg[e][:, None], dyf, 0)
+            dx = torch.where(seg[e][:, None], d @ w[e].float().T, dx)
+            dw.append(xf.T @ d)
+        return dx.to(x.dtype), torch.stack(dw).to(w.dtype)
     dyf = dy.float()
     if rows is not None:
         live = torch.arange(x.shape[1], device=x.device)[None, :] \

@@ -39,12 +39,12 @@ destroys.  The port keeps its model tensors replicated on every rank (the
 reference's layouts are XLA's partitioner's, which the port does not
 have), so the trace is one rank's program: the collectives are only those
 of the explicit sharded regions (the MoE's ``moe_shardmap``, the
-``decode_shard_s`` decode), and none of XLA's.  A step whose path picks
-rows by value has no trace without data: the all-to-all MoE dispatch
-(``moe_a2a``, the ``--optimized`` MoE train and prefill cells) selects
-each local expert's rows with ``torch.nonzero``, and the trace raises
-there (``DynamicOutputShapeException``).  Importing this module creates no
-process group and touches no device.
+``decode_shard_s`` decode), and none of XLA's.  Every step has static
+shapes: the all-to-all MoE dispatch (``moe_a2a``, the ``--optimized`` MoE
+train and prefill cells) sorts the rows it receives into one packed buffer
+and records its ragged K3 calls at the buffer's full size, as upper
+bounds.  Importing this module creates no process group and touches no
+device.
 """
 
 from __future__ import annotations

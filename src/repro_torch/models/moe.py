@@ -20,8 +20,10 @@ the default dispatch runs ``moe_block`` on each rank's local experts for
 its data shard of the tokens and sums the partial outputs over ``model``
 (the reference's gather + psum); with ``cfg.moe_a2a`` each rank keeps its
 sequence shard and ships its tokens' top-k copies to the experts' owners
-with ``all_to_all`` (``moe_a2a_block``).  The local experts of the gather
-dispatch still go through ``gmm`` (K3 on the card).
+with ``all_to_all`` (``moe_a2a_block``), which sorts the rows it receives
+by local expert into one packed buffer and runs the expert MLP as ragged
+grouped matmuls over it (``gmm`` with ``starts``), each row once.  Both
+dispatches go through ``gmm`` (K3 on the card).
 """
 
 from __future__ import annotations
@@ -176,10 +178,15 @@ def moe_a2a_block(cfg: ModelConfig, p, x, n_model: int,
     Each destination rank gets a send buffer of capacity
     ``C = max(4, ceil4(N k cf / n_model))`` (at most N k) holding the
     top-C (token, expert) pairs routed to it by gate; three
-    ``all_to_all`` calls ship tokens, token ids and local expert ids, the
-    local experts run on the rows they received (``torch.matmul``, as the
-    reference runs them outside any kernel), one ``all_to_all`` ships the
-    results back, and each is added to its token scaled by its gate."""
+    ``all_to_all`` calls ship tokens, token ids and local expert ids.  The
+    received rows are sorted by local expert into one packed buffer, and
+    the gate, up and down products run over it as ragged grouped matmuls
+    (``gmm`` with ``rows`` and ``starts``: K3 on the card, its plain
+    version on the CPU), each row multiplied once by its expert, where the
+    reference multiplies every row by every local expert and masks.  One
+    ``all_to_all`` ships the results back, and each is added to its token
+    scaled by its gate.  Every shape is static (no row is picked by
+    value), so the dispatch traces on fake tensors."""
     B, T, D = x.shape
     N = B * T
     K = cfg.top_k
@@ -212,15 +219,22 @@ def moe_a2a_block(cfg: ModelConfig, p, x, n_model: int,
     r_eloc = coll.all_to_all(send_eloc, group).reshape(-1)
     r_valid = r_tok >= 0
 
-    # the local experts, each on the received rows routed to it
-    out = torch.zeros((n_model * cap, D), dtype=x.dtype, device=x.device)
-    for e in range(E_loc):
-        sel = torch.nonzero(r_valid & (r_eloc == e)).reshape(-1)
-        if sel.numel() == 0:
-            continue
-        xe = rx[sel]
-        h = F.silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
-        out = out.index_add(0, sel, h @ p["w_down"][e])
+    # the local experts on the received rows, each row once: the rows
+    # sorted by local expert (stably, the rows of no expert last), each
+    # expert's count and first row, and one ragged K3 call a product over
+    # the packed buffer; static shapes, so a trace on fake tensors sizes it
+    key = torch.where(r_valid, r_eloc.long(), E_loc)
+    perm = torch.argsort(key, stable=True)
+    counts = torch.zeros(E_loc + 1, dtype=torch.int32, device=x.device)
+    counts.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    rows = counts[:E_loc]
+    starts = torch.cumsum(rows, 0, dtype=torch.int32) - rows
+    xs = rx[perm]
+    gmm = ops.moe_gmm if L.use_kernels(cfg, x) else ref.moe_gmm
+    h = F.silu(gmm(xs, p["w_gate"], rows, starts)) \
+        * gmm(xs, p["w_up"], rows, starts)
+    o = gmm(h, p["w_down"], rows, starts)
+    out = torch.zeros_like(o).index_copy(0, perm, o)
 
     back = coll.all_to_all(out.reshape(n_model, cap, D), group)
     tok = torch.clamp_min(send_tok, 0).reshape(-1).long()

@@ -168,6 +168,15 @@ def test_counts_with_data_and_without():
     assert cost.moe_gmm(4, 8, 16, 32, BF, [0, 0, 3, 9]).flops == \
         2 * 11 * 16 * 32
     assert cost.moe_gmm_bwd(4, 8, 16, 32, BF, [0] * 4).flops == 0
+    # ragged: C packed rows, each once; rows and starts read
+    rag = cost.moe_gmm(4, 40, 16, 32, BF, ragged=True)
+    assert rag.flops == 2 * 40 * 16 * 32
+    assert rag.bytes == 2 * (40 * 16 + 4 * 16 * 32 + 40 * 32) + 8 * 4
+    part = cost.moe_gmm(4, 40, 16, 32, BF, [0, 7, 0, 20], ragged=True)
+    assert part.flops == 2 * 27 * 16 * 32
+    assert part.bytes == 2 * (27 * 16 + 2 * 16 * 32 + 40 * 32) + 8 * 4
+    assert cost.moe_gmm_bwd(4, 40, 16, 32, BF, [0, 7, 0, 20],
+                            ragged=True).flops == 4 * 27 * 16 * 32
     with pytest.raises(ValueError):
         cost.dtype_name(torch.float16)
 
@@ -202,6 +211,14 @@ def _k3():
         .backward()
 
 
+def _k3_ragged():
+    x = _fake(40, 32, dtype=torch.bfloat16, grad=True)
+    w = _fake(4, 32, 16, dtype=torch.bfloat16, grad=True)
+    rows = torch.empty(4, dtype=torch.int32)
+    ops.moe_gmm(x, w, rows, torch.empty(4, dtype=torch.int32)).float() \
+        .sum().backward()
+
+
 def _k4():
     r, k, v = (_fake(2, 3, 130, 64, dtype=torch.bfloat16, grad=True)
                for _ in range(3))
@@ -229,6 +246,10 @@ FAKE_CALLS = [
     ("moe_gmm", _k3,
      [("moe_gmm", cost.moe_gmm(4, 8, 32, 16, BF16), True),
       ("moe_gmm_bwd", cost.moe_gmm_bwd(4, 8, 32, 16, BF16), True)]),
+    ("moe_gmm_ragged", _k3_ragged,
+     [("moe_gmm", cost.moe_gmm(4, 40, 32, 16, BF16, ragged=True), True),
+      ("moe_gmm_bwd", cost.moe_gmm_bwd(4, 40, 32, 16, BF16, ragged=True),
+       True)]),
     ("rwkv_scan", _k4,
      [("rwkv_scan", cost.rwkv_scan(2, 3, 130, 64, BF16), False),
       ("rwkv_scan_bwd", cost.rwkv_scan_bwd(2, 3, 130, 64, BF16, dS=True),
@@ -410,6 +431,21 @@ def test_dryrun_full_size_cell_on_the_production_mesh(tmp_path):
 REF_CELLS = {("qwen3_0_6b", "train_4k"): 1.462,
              ("qwen3_0_6b", "decode_32k"): 0.333,
              ("qwen3_moe_235b", "train_4k"): 0.963}
+# the --optimized MoE cells (``optimized_overrides``: the all-to-all
+# dispatch, ``moe_a2a``), compared the same way.  Measured ratios (port /
+# reference) and why: the port's a2a records count within 0.4% of its
+# gather records of the same cells (0.963, 0.952, 1.206, 1.228 of the
+# reference's gather records), because ragged K3 multiplies each received
+# row once, by its own expert; the reference's a2a records count 1.80x
+# (qwen3-moe) and 1.55x (arctic) its gather records, because its dispatch
+# multiplies every one of the n_model C received rows by each of its
+# E_loc local experts and masks (E_loc = 2 at smoke: 63 M of the 405 M
+# FLOPs a device it adds in the train cell; the rest is the rest of the
+# dispatch as XLA counts it: the top-k and masked copies a destination)
+A2A_CELLS = {("qwen3_moe_235b", "train_4k"): 0.532,
+             ("qwen3_moe_235b", "prefill_32k"): 0.535,
+             ("arctic_480b", "train_4k"): 0.773,
+             ("arctic_480b", "prefill_32k"): 0.790}
 # the port's decode takes the cache's ``length`` as a Python int, where
 # the reference's cache carries it as an int32 device scalar
 LENGTH_LEAF = 4
@@ -417,8 +453,9 @@ LENGTH_LEAF = 4
 
 @pytest.fixture(scope="module")
 def reference_records():
-    """The reference's records of REF_CELLS from one JAX subprocess on 8
-    host devices (the reference's own test setting) and a 2x4 mesh."""
+    """The reference's records of REF_CELLS, then of A2A_CELLS with its
+    ``optimized_overrides``, from one JAX subprocess on 8 host devices (the
+    reference's own test setting) and a 2x4 mesh."""
     code = (
         "import json\n"
         "import repro.launch.dryrun as d\n"
@@ -426,6 +463,9 @@ def reference_records():
         "mesh = make_mesh((2, 4), ('data', 'model'))\n"
         f"recs = [d.lower_cell(a, s, mesh, smoke=True, verbose=False) "
         f"for a, s in {list(REF_CELLS)!r}]\n"
+        f"recs += [d.lower_cell(a, s, mesh, smoke=True, verbose=False, "
+        f"overrides=d.optimized_overrides(a, s)) "
+        f"for a, s in {list(A2A_CELLS)!r}]\n"
         "print(json.dumps(recs))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                DRYRUN_XLA_FLAGS="--xla_force_host_platform_device_count=8")
@@ -482,16 +522,67 @@ def test_dryrun_on_a_mesh_records_the_ports_own_collectives(fake_mesh_2x4):
     assert moe["collectives"]["all-to-all"] == 0
 
 
-def test_dryrun_refuses_a_step_that_selects_rows_by_value(fake_mesh_2x4):
-    """The all-to-all dispatch (``moe_a2a``, the ``--optimized`` MoE train
-    and prefill cells) picks each local expert's rows with
-    ``torch.nonzero``: without data the trace cannot size them, and the
-    dry-run raises rather than guess."""
-    from torch._subclasses.fake_tensor import DynamicOutputShapeException
-    with pytest.raises(DynamicOutputShapeException):
-        dryrun.lower_cell("qwen3_moe_235b", "prefill_32k", fake_mesh_2x4,
-                          smoke=True, verbose=False,
-                          overrides={"moe_a2a": True})
+@pytest.mark.parametrize("cell", list(A2A_CELLS),
+                         ids=["_".join(c) for c in A2A_CELLS])
+def test_dryrun_optimized_moe_cell_matches_the_references(
+        cell, reference_records, fake_mesh_2x4):
+    """The ``--optimized`` MoE train and prefill cells (the all-to-all
+    dispatch) record on the 2x4 fake mesh: parameters, active parameters
+    and argument bytes equal to the reference's record of the same cell,
+    all-to-all bytes in both, K3 and (training) its backward recorded as
+    ragged upper bounds, and the FLOPs at A2A_CELLS's ratio."""
+    theirs = reference_records[len(REF_CELLS) + list(A2A_CELLS).index(cell)]
+    overrides = dryrun.optimized_overrides(*cell)
+    assert overrides == {"moe_a2a": True}
+    mine = dryrun.lower_cell(*cell, fake_mesh_2x4, smoke=True, verbose=False,
+                             overrides=overrides)
+    for key in ("arch", "shape", "mode", "mesh", "seq", "batch", "params",
+                "active_params"):
+        assert mine[key] == theirs[key], key
+    assert mine["memory"]["argument_size_in_bytes"] == \
+        theirs["memory"]["argument_size_in_bytes"]
+    assert mine["collectives"]["all-to-all"] > 0
+    assert theirs["collectives"]["all-to-all"] > 0
+    k3 = mine["kernels"]["moe_gmm"]
+    assert k3["launches"] == 6 * (2 if mine["mode"] == "train" else 1)
+    assert k3["upper_bound"]
+    assert ("moe_gmm_bwd" in mine["kernels"]) == (mine["mode"] == "train")
+    ratio = mine["cost"]["flops"] / theirs["cost"]["flops"]
+    assert abs(ratio / A2A_CELLS[cell] - 1) < 0.05, ratio
+
+
+def test_a2a_dispatch_runs_on_fake_tensors(fake_mesh_2x4):
+    """``moe_a2a_block`` has one static form: on fake tensors it runs on
+    the plain path, and on the card's path it records three ragged K3
+    calls over the n_model C received rows (upper bounds) and, through
+    the backward, three of K3's backward, launching nothing."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(tconfigs.smoke("qwen3_moe_235b"), moe_a2a=True)
+    n_model = 4
+    E_loc, D, F = cfg.n_experts // n_model, cfg.d_model, cfg.e_ff
+    B, T = 2, 8
+    # the a2a capacity a destination, as moe_a2a_block sizes it
+    M = n_model * min(max(4, -(-int(B * T * cfg.top_k * cfg.capacity_factor
+                                    / n_model) // 4) * 4), B * T * cfg.top_k)
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        p = {"router": _fake(D, cfg.n_experts),
+             "w_gate": _fake(E_loc, D, F, grad=True),
+             "w_up": _fake(E_loc, D, F, grad=True),
+             "w_down": _fake(E_loc, F, D, grad=True)}
+        x = _fake(B, T, D, grad=True)
+        y, aux = moe.moe_a2a_block(cfg, p, x, n_model, mesh=fake_mesh_2x4)
+        assert isinstance(y, FakeTensor) and y.shape == (B, T, D)
+        with cost.card_path(), cost.recording() as calls:
+            y, aux = moe.moe_a2a_block(cfg, p, x, n_model,
+                                       mesh=fake_mesh_2x4)
+            (y.sum() + aux).backward()
+    assert y.shape == (B, T, D) and x.grad.shape == x.shape
+    assert [(r.name, r.upper_bound) for r in calls] == \
+        [("moe_gmm", True)] * 3 + [("moe_gmm_bwd", True)] * 3
+    assert all(r.args["ragged"] and r.args["C"] == M and r.args["E"] == E_loc
+               for r in calls)
+    assert not any(ops.launch_counts().values())
 
 
 def test_trace_notes_an_all_to_all(fake_mesh_2x4):

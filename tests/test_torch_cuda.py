@@ -906,6 +906,95 @@ def test_cuda_moe_gmm_rows(cuda, dtype, rows, E, C, D, F):
                                rtol=TOLS[dtype], atol=TOLS[dtype])
 
 
+def ragged_rows(kind, E, M):
+    """(rows, starts) lists of a packed buffer of M rows, each expert's
+    segment after the last: "odd" counts (segment ends no multiple of 16,
+    empty experts) that leave rows of no expert at the end; "all": one
+    expert holds all M rows; "full": seeded counts summing to M."""
+    if kind == "all":
+        rows = [M if e == E // 2 else 0 for e in range(E)]
+    elif kind == "odd":
+        rows, left = [], M - 5
+        for e in range(E):
+            rows.append(min(left, (37, 0, 100, 1, 63, 65, 0, 19)[e % 8]))
+            left -= rows[-1]
+    else:
+        g = torch.Generator().manual_seed(E * M)
+        cut = torch.sort(torch.randint(0, M + 1, (E - 1,), generator=g))[0]
+        edges = [0] + cut.tolist() + [M]
+        rows = [b - a for a, b in zip(edges, edges[1:])]
+    starts = [sum(rows[:e]) for e in range(E)]
+    return rows, starts
+
+
+RAGGED_SHAPES = [(8, 640, 520, 260), (4, 1000, 300, 129),
+                 (128, 4000, 256, 192)]
+
+
+def _ragged_inputs(cuda, dtype, kind, E, M, D, F):
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    x = torch.randn((M, D), generator=g, device=cuda).to(dt)
+    w = torch.randn((2, E, D, F), generator=g, device=cuda).to(dt)[1]
+    rows, starts = (torch.tensor(v, dtype=torch.int32, device=cuda)
+                    for v in ragged_rows(kind, E, M))
+    owned = torch.zeros(M, dtype=torch.bool, device=cuda)
+    owned[:int(rows.sum())] = True            # the rows of some expert
+    return x, w, rows, starts, owned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["odd", "all", "full"])
+@pytest.mark.parametrize("E,M,D,F", RAGGED_SHAPES)
+def test_cuda_moe_gmm_ragged_matches_plain(cuda, dtype, kind, E, M, D, F):
+    """Ragged K3 (``starts``, the all-to-all dispatch's packed buffer)
+    against the ragged ``ref.moe_gmm``: segment ends no multiple of 16,
+    empty experts, one expert holding every row and rows of no expert,
+    which must stay exact zeros; 128 experts (the tile search over more
+    than one warp of counts); an F no 16-byte row divides."""
+    x, w, rows, starts, owned = _ragged_inputs(cuda, dtype, kind, E, M, D, F)
+    ops.reset_launch_counts()
+    got = ops.moe_gmm(x, w, rows, starts)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["moe_gmm"] == 1 and got.shape == (M, F)
+    assert not got[~owned].any()
+    torch.testing.assert_close(got.float(),
+                               ref.moe_gmm(x, w, rows, starts).float(),
+                               rtol=TOLS[dtype], atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["odd", "all", "full"])
+@pytest.mark.parametrize("E,M,D,F", RAGGED_SHAPES)
+def test_cuda_moe_gmm_ragged_backward_matches_plain(cuda, dtype, kind, E, M,
+                                                    D, F):
+    """Ragged K3's backward against autograd of the ragged ``ref.moe_gmm``
+    and against ``ref.moe_gmm_backward``: dx exact zeros on the rows of no
+    expert, dw zeros for an empty expert, the ``tc`` route in bf16 (TMA
+    cannot stop at a segment's end) and ``f32`` in float32; each gradient
+    at its tolerance of its largest entry."""
+    from repro_torch.kernels import moe_gmm as k3
+    x0, w0, rows, starts, owned = _ragged_inputs(cuda, dtype, kind, E, M, D,
+                                                 F)
+    dy = torch.randn((M, F), generator=torch.Generator(cuda).manual_seed(1),
+                     device=cuda).to(x0.dtype)
+    x, w = (t.detach().requires_grad_(True) for t in (x0, w0))
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.moe_gmm(x, w, rows, starts), (x, w), dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["moe_gmm"], counts["moe_gmm_bwd"]) == (1, 1)
+    route = "f32" if dtype == "float32" else "tc"
+    assert k3.bwd_routes == {k: int(k == route) for k in k3.bwd_routes}
+    assert not got[0][~owned].any() and not got[1][rows == 0].any()
+    want = torch.autograd.grad(ref.moe_gmm(x, w, rows, starts), (x, w), dy)
+    _scaled_close(got, want, TOLS[dtype])
+    _scaled_close(got, ref.moe_gmm_backward(x.detach(), w.detach(), dy, rows,
+                                            starts), TOLS[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "arctic_480b"])
 def test_cuda_moe_model_kernel_path_matches_plain_path(cuda, arch):

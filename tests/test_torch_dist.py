@@ -12,7 +12,8 @@ host devices (``--xla_force_host_platform_device_count``, as
 * the MoE's gather dispatch on (2, 2) and (1, 4) and its all-to-all
   dispatch on (1, 2) and (1, 4), at capacity factor 8 (no drops) and at
   the config's own (drops): y and aux at 2e-3 (``tests/test_perf_variants``),
-  and the gradients of a loss through the gather dispatch on (2, 2);
+  and the gradients of a loss through the gather dispatch on (2, 2) and
+  through the all-to-all dispatch on (1, 2) and (1, 4), at 1e-4;
 * the sharded-S decode (``decode_shard_s``, granite-34b smoke, 6 tokens)
   on (1, 2) and (2, 2): logits at 2e-3 and the gathered k/v shards, and
   the fall-back when S does not divide;
@@ -97,6 +98,15 @@ REF = textwrap.dedent("""
     out["grad_x"] = np.asarray(gx)
     for k, v in gp.items():
         out[f"grad_{{k}}"] = np.asarray(v)
+    for shape in ((1, 2), (1, 4)):
+        def a2a_loss(p, x, m=mesh(shape),
+                     c=dataclasses.replace(cfg, moe_a2a=True)):
+            y, aux = moe_shardmap(c, m, p, x)
+            return jnp.sum(y * w) + aux
+        gp, gx = jax.jit(jax.grad(a2a_loss, argnums=(0, 1)))(p, x)
+        out[f"a2a_{{shape}}_grad_x"] = np.asarray(gx)
+        for k, v in gp.items():
+            out[f"a2a_{{shape}}_grad_{{k}}"] = np.asarray(v)
 
     g = dataclasses.replace(configs.smoke("granite_34b"), dtype="float32",
                             decode_shard_s=True)
@@ -193,16 +203,21 @@ def _moe(out, inp, moe_p, gather_shapes, a2a_shapes):
                 out[f"{kind}_{shape}_{cf}_aux"] = aux.numpy()
 
 
-def _moe_grads(out, inp, moe_p):
+def _moe_grads(out, inp, moe_p, kind="gather", shape=(2, 2)):
+    """The gradients of one loss through ``moe_shardmap``'s ``kind``
+    dispatch on ``shape``: keys ``grad_*`` for the gather dispatch,
+    ``a2a_<shape>_grad_*`` for the all-to-all one."""
     from repro_torch.models.moe import moe_shardmap
     p = {k: torch.from_numpy(v).requires_grad_(True)
          for k, v in moe_p.items()}
     x = torch.from_numpy(inp["moe_x"]).requires_grad_(True)
-    y, aux = moe_shardmap(_moe_cfg(8.0), _mesh((2, 2)), p, x)
+    y, aux = moe_shardmap(_moe_cfg(8.0, moe_a2a=kind == "a2a"),
+                          _mesh(shape), p, x)
     (torch.sum(y * torch.from_numpy(inp["moe_w"])) + aux).backward()
-    out["grad_x"] = x.grad.numpy()
+    pre = "" if kind == "gather" else f"a2a_{shape}_"
+    out[pre + "grad_x"] = x.grad.numpy()
     for k, v in p.items():
-        out[f"grad_{k}"] = v.grad.numpy()
+        out[f"{pre}grad_{k}"] = v.grad.numpy()
 
 
 def _decode(out, inp, gparams, name, shape):
@@ -289,6 +304,7 @@ def _world2(inp, moe_p, gparams):
     from repro_torch.serve import ServeEngine
     out = {"rank": dist.get_rank()}
     _moe(out, inp, moe_p, (), ((1, 2),))
+    _moe_grads(out, inp, moe_p, "a2a", (1, 2))
     _decode(out, inp, gparams, "(1, 2)", (1, 2))
     _decode(out, inp, gparams, "fallback", (1, 2))
     _pipeline(out, inp, 2)
@@ -319,6 +335,7 @@ def _world4(inp, moe_p, gparams, tparams):
     out = {"rank": dist.get_rank()}
     _moe(out, inp, moe_p, ((2, 2), (1, 4)), ((1, 4),))
     _moe_grads(out, inp, moe_p)
+    _moe_grads(out, inp, moe_p, "a2a", (1, 4))
     _decode(out, inp, gparams, "(2, 2)", (2, 2))
     _pipeline(out, inp, 4)
 
@@ -489,6 +506,21 @@ def test_moe_gradients_through_the_gather_dispatch_match_jax_grad(runs):
     for r in port[4]:
         for k in keys:
             _close(r[k], ref[k], 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)])
+def test_moe_gradients_through_the_a2a_dispatch_match_jax_grad(runs, shape):
+    """On (1, 2) and (1, 4), each rank's gradients of one loss through
+    ``moe_shardmap``'s all-to-all dispatch (the ragged grouped matmuls'
+    plain version on the CPU; x, the router and every expert leaf) equal
+    ``jax.grad`` of the reference's."""
+    _, ref, port = runs
+    keys = [k for k in ref if k.startswith(f"a2a_{shape}_grad_")]
+    assert len(keys) == 5
+    for r in port[int(np.prod(shape))]:
+        for k in keys:
+            _close(r[k], ref[k], 1e-4)
+        assert np.abs(r[f"a2a_{shape}_grad_w_gate"]).max() > 0
 
 
 @pytest.mark.parametrize("name,world", [("(1, 2)", 2), ("(2, 2)", 4),

@@ -108,6 +108,132 @@ def test_moe_gmm_rows_matches_pallas(e, c, d, f, rows):
         atol=0)
 
 
+# ragged moe_gmm (the all-to-all dispatch's packed buffer): (E, M, D, F,
+# rows): segment ends no multiple of 16 and empty experts, one expert
+# holding all M rows, rows of no expert at the end, and counts filling M
+RAGGED = [(4, 100, 24, 40, [37, 0, 45, 13]), (3, 50, 16, 8, [0, 50, 0]),
+          (5, 90, 20, 12, [17, 1, 0, 33, 19]), (2, 64, 32, 16, [64, 0]),
+          (6, 128, 48, 24, [21, 0, 30, 0, 15, 62])]
+
+
+def _ragged(case, seed):
+    """x (M, D), w (E, D, F), dy (M, F) float32 from a seed, rows and
+    starts (each segment after the last) as numpy int32."""
+    E, M, D, F, rows = case
+    rng = np.random.default_rng(seed)
+    rows = np.asarray(rows, np.int32)
+    starts = (np.cumsum(rows) - rows).astype(np.int32)
+    return (arr(rng, M, D), arr(rng, E, D, F), arr(rng, M, F), rows,
+            starts)
+
+
+def _padded(x, rows, starts, C):
+    """The packed rows as the dense form's (E, C, D) buffers: expert e's
+    rows first, then zeros."""
+    out = np.zeros((len(rows), C, x.shape[1]), x.dtype)
+    for e, (s, n) in enumerate(zip(starts, rows)):
+        out[e, :n] = x[s:s + n]
+    return out
+
+
+def _unpad(y, rows, starts, M):
+    out = np.zeros((M, y.shape[2]), y.dtype)
+    for e, (s, n) in enumerate(zip(starts, rows)):
+        out[s:s + n] = y[e, :n]
+    return out
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[str(c[4]) for c in RAGGED])
+def test_ragged_moe_gmm_matches_a_loop_and_the_padded_form(case):
+    """Ragged ``ref.moe_gmm`` (``starts``) against a float64 loop over the
+    experts' segments, the dense form over padded (E, C, D) buffers with
+    ``rows``, and the JAX package's oracle over the same buffers; rows of
+    no expert are exact zeros."""
+    x, w, _, rows, starts = _ragged(case, 3)
+    M, C = x.shape[0], int(rows.max())
+    got = ops.moe_gmm(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(rows), torch.from_numpy(starts))
+    loop = np.zeros((M, w.shape[2]))
+    for e, (s, n) in enumerate(zip(starts, rows)):
+        loop[s:s + n] = x[s:s + n].astype(np.float64) @ w[e]
+    np.testing.assert_allclose(got.numpy(), loop, rtol=1e-5, atol=1e-5)
+    assert not got[int(rows.sum()):].any()
+    xp = _padded(x, rows, starts, C)
+    dense = ref.moe_gmm(torch.from_numpy(xp), torch.from_numpy(w),
+                        torch.from_numpy(rows))
+    np.testing.assert_allclose(got.numpy(),
+                               _unpad(dense.numpy(), rows, starts, M),
+                               rtol=1e-5, atol=1e-5)
+    oracle = np.asarray(jref.moe_gmm(jnp.asarray(xp), jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), _unpad(oracle, rows, starts, M),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[str(c[4]) for c in RAGGED])
+def test_ragged_moe_gmm_backward_matches_a_loop_and_the_padded_form(case):
+    """Ragged ``ref.moe_gmm_backward`` against autograd of the ragged
+    ``ref.moe_gmm``, a float64 loop over the segments (dx = dy w[e]^T on
+    expert e's rows, zeros elsewhere; dw[e] = x^T dy over its rows only),
+    the dense backward over the padded buffers, and ``jax.vjp`` of the
+    oracle over them."""
+    x, w, dy, rows, starts = _ragged(case, 4)
+    M, C = x.shape[0], int(rows.max())
+    tx, tw = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    r, s = torch.from_numpy(rows), torch.from_numpy(starts)
+    dx, dw = ref.moe_gmm_backward(tx.detach(), tw.detach(),
+                                  torch.from_numpy(dy), r, s)
+    auto = torch.autograd.grad(ref.moe_gmm(tx, tw, r, s), (tx, tw),
+                               torch.from_numpy(dy))
+    ldx, ldw = np.zeros(x.shape), np.zeros(w.shape)
+    for e, (s0, n) in enumerate(zip(starts, rows)):
+        d = dy[s0:s0 + n].astype(np.float64)
+        ldx[s0:s0 + n] = d @ w[e].T
+        ldw[e] = x[s0:s0 + n].T.astype(np.float64) @ d
+    pdx, pdw = ref.moe_gmm_backward(
+        torch.from_numpy(_padded(x, rows, starts, C)), torch.from_numpy(w),
+        torch.from_numpy(_padded(dy, rows, starts, C)), r)
+    _, vjp = jax.vjp(jref.moe_gmm, jnp.asarray(_padded(x, rows, starts, C)),
+                     jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(_padded(dy, rows, starts, C)))
+    for want_dx, want_dw in (
+            (auto[0].numpy(), auto[1].numpy()), (ldx, ldw),
+            (_unpad(pdx.numpy(), rows, starts, M), pdw.numpy()),
+            (_unpad(np.asarray(jdx), rows, starts, M), np.asarray(jdw))):
+        np.testing.assert_allclose(dx.numpy(), want_dx, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(dw.numpy(), want_dw, rtol=1e-5, atol=1e-5)
+    assert not dx[int(rows.sum()):].any() and not dw[r == 0].any()
+
+
+@pytest.mark.parametrize("bm", [4, 16, 64, 128])
+@pytest.mark.parametrize("E,M", [(8, 640), (128, 4000), (3, 7), (40, 90)])
+def test_ragged_tiles_cover_each_segment_once(E, M, bm):
+    """``csrc/ragged.cuh``'s ``ragged_tile``, mirrored: over the grid's
+    ceil(M / bm) + E row tiles, the prefix sums of ceil(rows[e] / bm) give
+    each expert's tiles in order; every row of every segment falls in
+    exactly one tile, no tile reaches past its segment, and the tiles past
+    the last find no expert, for any counts (seeded, empty experts and one
+    expert holding every row among them)."""
+    rng = np.random.default_rng(E * M + bm)
+    draws = [rng.multinomial(M, np.ones(E) / E),
+             np.eye(E, dtype=np.int64)[E // 2] * M,
+             np.minimum(rng.integers(0, 2 * M // E + 2, E), M // E)]
+    for rows in draws:
+        starts = np.cumsum(rows) - rows
+        tiles = -(-rows // bm)
+        seen = np.zeros(M, np.int64)
+        for t in range(-(-M // bm) + E):
+            hit = [(e, (t - first) * bm) for e, (first, n) in enumerate(
+                zip(np.cumsum(tiles) - tiles, tiles)) if first <= t < first + n]
+            assert len(hit) <= 1
+            if t >= tiles.sum():
+                assert hit == []
+                continue
+            e, m0 = hit[0]
+            assert 0 <= m0 < rows[e]
+            seen[starts[e] + m0:starts[e] + min(m0 + bm, rows[e])] += 1
+        assert (seen[:rows.sum()] == 1).all() and not seen[rows.sum():].any()
+
+
 def test_moe_gmm_wrapper_validates_inputs():
     from repro_torch.kernels import moe_gmm as k3
     x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 16))
@@ -130,6 +256,28 @@ def test_moe_gmm_wrapper_validates_inputs():
     with pytest.raises(ValueError, match="no kernel"):
         ops.moe_gmm(x.to("meta"), w.to("meta"))
     assert "moe_gmm" in ops.launch_counts()
+
+
+def test_moe_gmm_wrapper_validates_ragged_inputs():
+    """``starts`` comes with ``rows``, both (E,) int32 and contiguous, and
+    with a 2-D x whose D is w's."""
+    from repro_torch.kernels import moe_gmm as k3
+    x, w = torch.zeros((10, 8)), torch.zeros((2, 8, 16))
+    r = s = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.check(x, w, r, s)                           # CPU tensors
+    with pytest.raises(ValueError, match="ragged"):
+        k3.check(torch.zeros((2, 10, 8)), w, r, s)
+    with pytest.raises(ValueError, match="ragged"):
+        k3.check(torch.zeros((10, 9)), w, r, s)
+    with pytest.raises(ValueError, match="together with rows"):
+        k3.check(x, w, None, s)
+    with pytest.raises(ValueError, match="starts"):
+        k3.check(x, w, r, torch.zeros((2,), dtype=torch.int64))
+    with pytest.raises(ValueError, match="starts"):
+        k3.check(x, w, r, torch.zeros((4,), dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="want x"):
+        k3.check(x, w, r)                              # 2-D x, no starts
 
 
 # ---------------------------------------------------------------------------
