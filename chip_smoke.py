@@ -67,20 +67,28 @@ Phases, each printed as one JSON object on its own line:
               (and, for K3, two ``torch.bmm`` calls; for K5,
               ``k5_bwd_same_bytes``: a ``torch.add`` over the same bytes).
               Ragged K3 (``starts``: the all-to-all dispatch's packed
-              buffer) is timed at the shape of the mesh phase's one-rank
-              all-to-all runs (128 experts, M = 8,192 rows of a seeded
-              routing of 1,024 tokens to their top 8, none dropped):
-              gate/up and down in bf16, gate/up and the backward (the
-              ``f32`` route) in float32; these rows carry those runs'
-              launches.  Then at one rank of the production mesh
-              (qwen3-moe-235b-a22b train_4k on 16 x 16: M = 40,960 rows,
-              8 experts, a seeded routing at capacity factor 1.25), a
-              shape no run here reaches: gate/up, down and the backward
-              (on the ``tc`` route), whose rows name the run their
-              launches come from (``launches_from``, ``launches_at``).
-              Each backward runs twice, ``torch.equal``; each row is
-              beside its plain version and, in bf16,
-              ``torch._grouped_mm`` with ``offs``.
+              buffer) and its backward are checked against the plain
+              versions (K3_RAGGED_CASES: abutting segments, segments in
+              reverse expert order after gaps, empty experts; the rows
+              of no expert and the empty experts' dw exact zeros; each
+              call on the route ``_route`` names, ``wgmma`` in bf16 where
+              TMA can read the operands) and timed at the shape of the
+              mesh phase's one-rank all-to-all runs (128 experts, M =
+              8,192 rows of a seeded routing of 1,024 tokens to their top
+              8, none dropped): gate/up and down and the backward in
+              bf16 (``wgmma``), gate/up and the backward in float32
+              (``f32``); these rows carry those runs' launches.  Then at
+              one rank of the production mesh (qwen3-moe-235b-a22b
+              train_4k on 16 x 16: M = 40,960 rows, 8 experts, a seeded
+              routing at capacity factor 1.25), a shape no run here
+              reaches: gate/up, down and the backward (``wgmma``), whose
+              rows name the run their launches come from
+              (``launches_from``, ``launches_at``); and an information
+              row, the dense training capacity (E 128, C 640) as one
+              packed buffer on the ragged forward.  Each row's route is
+              checked on the route counters; each backward runs twice,
+              ``torch.equal``; each row is beside its plain version and
+              ``torch._grouped_mm`` with ``offs``, in float32 too.
   4. train    four families at their published widths (TRAIN_CASES),
               each in turn: the float32 ``loss_fn`` gradients through the
               kernels and their backwards against ``attn_impl="plain"``
@@ -198,7 +206,8 @@ Phases, each printed as one JSON object on its own line:
               is the identity) with the same launches (K3 9, K2 3); then,
               at a capacity that drops no token (capacity factor E / k),
               the all-to-all dispatch (``moe_a2a``: ragged K3 over the
-              received rows sorted by expert, 9 launches, K2 3) against
+              received rows sorted by expert, 9 launches, in bf16 on
+              ``wgmma``, the gather dispatch's on ``tc``; K2 3) against
               the gather dispatch, in bf16 (relative L2 5e-2) and in
               float32 (2e-3), each with its peak memory; in bf16 also
               each K3 call of one more all-to-all prefill against
@@ -206,12 +215,18 @@ Phases, each printed as one JSON object on its own line:
               starts, elementwise at 2e-2), and both dispatches on the
               plain path, whose relative L2s against each other and
               against the kernel runs are printed (not held: see the
-              MoE's routing flips in bf16 under 5); then one float32
-              gradient of ``loss_fn`` through the all-to-all dispatch at
-              one layer, B=1, T=1024, against the plain path (each leaf
-              at 2e-3; K3 6 / 3 on the ``f32`` route, K2 2 / 1).  qwen3-0.6b at 28
-              layers: the DSM-backed engine as the serve phase runs it (8
-              requests of 16 tokens, ``Cluster(4, "drust")``, int8 wire)
+              MoE's routing flips in bf16 under 5); then one gradient of
+              ``loss_fn`` through the all-to-all dispatch at one layer,
+              B=1, T=1024, in float32 and in bf16, against the plain path
+              (each leaf by relative L2 at A2A_GRAD_TOL, 2e-3 / 1e-1; K3 6
+              / 3 on the ``f32`` / ``wgmma`` routes, K2 2 / 1; in bf16
+              the loss at 1e-2, each leaf at 2e-2 against the same path
+              with K3 on its plain version, and each of the 3 K3 backward
+              calls of one more gradient against ``ref.moe_gmm_backward``
+              on its own inputs at 2e-2 of its largest entry).
+              qwen3-0.6b at 28 layers: the DSM-backed engine as the serve
+              phase runs it (8 requests of 16 tokens, ``Cluster(4,
+              "drust")``, int8 wire)
               without a mesh, on the mesh (the same tokens; K1 28 a tick)
               and on the mesh with ``decode_shard_s`` (the cache's k/v in
               DTensor shards, the sharded partial softmax in place of K1;
@@ -253,6 +268,17 @@ TOLS = {"float32": 2e-3, "bfloat16": 2e-2}
 # at different points in each of 28 layers, so the logits agree only to a
 # few bf16 ulps; in float32 only the summation order differs.
 LOGIT_REL_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+# The all-to-all gradient step's leaves against the plain path, relative
+# L2: float32 as the train phases hold theirs (the same products summed in
+# another order).  bf16: the two paths round at different points (K2's
+# bf16 probabilities against the plain attention's float32 softmax), and
+# in bf16 that moves router logits enough to flip some of the 8,192 top-8
+# choices (as in the bf16 prefill, PERF.md), each flip moving a whole row
+# of two experts' gradients and the router's, and through them every
+# token's (the H100: about 5.5e-2 in every leaf, PERF.md).  K3 itself is
+# held at TOLS: each backward call on its own inputs, and the leaves
+# against the same path with K3 on its plain version (``mesh_a2a_grad``).
+A2A_GRAD_TOL = {"float32": 2e-3, "bfloat16": 1e-1}
 NO_LIBRARY = "no single PyTorch call computes it"
 
 # K3 on qwen3-moe-235b-a22b's path (E = 128 experts, d = 4096, expert
@@ -354,6 +380,17 @@ K3_BWD_CASES = [(128, 640, 4096, 1536, False, "partial"),
 # aligned rows, so F = 129 and 259 take the mma.sync kernel
 K3_BWD_ROUTES = ["wgmma", "wgmma", "wgmma", "tc", "wgmma", "tc", "wgmma",
                  "wgmma"]
+# ragged K3 (the all-to-all dispatch's packed buffer), forward and
+# backward: (E, M, D, F, kind): abutting segments with rows of no expert
+# at the end ("abutting"), segments in reverse expert order after gaps of
+# rows of no expert ("gaps"), both with empty experts, one-row segments
+# and ends no multiple of 16; rows TMA can read (wgmma in bf16: a last D
+# stage of 8, a second N tile of 8 columns; 128 experts) and F = 260 (the
+# mma.sync kernels)
+K3_RAGGED_CASES = [(8, 1000, 136, 264, "abutting"),
+                   (8, 1000, 136, 264, "gaps"),
+                   (128, 4000, 256, 192, "gaps"),
+                   (8, 640, 520, 260, "gaps")]
 # K4: (B, H, T, M, S0, dS_T): the training shape (no S0, no final-state
 # gradient), ragged T, B = 3, the decode step, heads under 64, an S0 that
 # requires grad and a non-zero gradient of the final state
@@ -374,8 +411,8 @@ K5_BWD_TOL = 1e-4
 # others are freed: its serve phase needs the most memory.
 MOE_LAYERS = 3
 PIXTRAL_LAYERS = 28
-# the runs of the all-to-all MoE dispatch (ragged K3) in ``mesh_moe``: its
-# bf16 prefill, and its float32 prefill and gradient step.  The kernel
+# the runs of the all-to-all MoE dispatch (ragged K3) in ``mesh_moe``:
+# its prefill and gradient step, in bf16 and in float32.  The kernel
 # rows at their shape take these runs' launches; those at one production
 # rank's shape name the run theirs come from (``launches_from``)
 A2A_BF16 = "qwen3-moe-235b-a22b a2a bf16"
@@ -596,6 +633,21 @@ def kernel_phase(torch, dev) -> list[dict]:
         n = [0] * E if kind == "zero" else \
             [pattern[kind][e % 8] for e in range(E)]
         return torch.tensor(n, dtype=torch.int32, device=dev)
+
+    def k3_ragged_rows(kind, E, M):
+        """(rows, starts) (E,) int32 of a packed buffer of M rows: the
+        counts 37, 0, 100, 1, 63, 65, 0, 19 by expert, cut to fit;
+        "abutting": each segment right after the last, rows of no expert
+        at the end; "gaps": in reverse expert order, each segment after 3
+        to 7 rows of no expert."""
+        rows, starts, at = [0] * E, [0] * E, 0
+        for e in (reversed(range(E)) if kind == "gaps" else range(E)):
+            at = min(at + (3 + e % 5 if kind == "gaps" else 0), M - 5)
+            rows[e] = min(M - 5 - at, (37, 0, 100, 1, 63, 65, 0, 19)[e % 8])
+            starts[e] = at
+            at += rows[e]
+        return (torch.tensor(rows, dtype=torch.int32, device=dev),
+                torch.tensor(starts, dtype=torch.int32, device=dev))
 
     def k3_inputs(E, C, D, F_, dtype, strided=False):
         """x (E,C,D), or a view of a wider buffer when ``strided``, and w
@@ -836,6 +888,36 @@ def kernel_phase(torch, dev) -> list[dict]:
                      f"moe_gmm_bwd {E, C, D, F_, kind}: a dead row or an "
                      "empty expert got a non-zero gradient")
             del x, w, dy, got
+        for E, M, D, F_, kind in K3_RAGGED_CASES:
+            rows_r, starts_r = k3_ragged_rows(kind, E, M)
+            x, w = leaf(rand(M, D, dtype=dtype)), \
+                leaf(k3_inputs(E, 1, D, F_, dtype)[1])
+            dy = rand(M, F_, dtype=dtype)
+            ops.reset_launch_counts()
+            y = ops.moe_gmm(x, w, rows_r, starts_r)
+            got = torch.autograd.grad(y, (x, w), dy)
+            route = "f32" if dt == "float32" else \
+                "wgmma" if F_ % 8 == 0 else "tc"
+            case = {"dtype": dt, "E": E, "M": M, "D": D, "F": F_,
+                    "ragged": kind, "route": route}
+            need(k3._route(x, w, dy) == route
+                 and k3.routes == {k: int(k == route) for k in k3.routes}
+                 and k3.bwd_routes == {k: int(k == route)
+                                       for k in k3.bwd_routes},
+                 f"moe_gmm ragged {case}: routes {k3.routes} / "
+                 f"{k3.bwd_routes}")
+            owned = ref._segments(rows_r, starts_r, M).any(0)
+            need(not y[~owned].any() and not got[0][~owned].any()
+                 and not got[1][rows_r == 0].any(),
+                 f"moe_gmm ragged {case}: a row of no expert or an empty "
+                 "expert is not zero")
+            with torch.no_grad():
+                check("moe_gmm", case, y, ref.moe_gmm(x, w, rows_r,
+                                                      starts_r), TOLS[dt])
+                grad_check("moe_gmm_bwd", case, got,
+                           ref.moe_gmm_backward(x, w, dy, rows_r, starts_r),
+                           TOLS[dt])
+            del x, w, dy, y, got
         for B, H, T, M, with_s0, with_dst in K4_BWD_CASES:
             ins = [None if t is None else leaf(t)
                    for t in k4_inputs(B, H, T, M, dtype, with_s0)]
@@ -1191,29 +1273,42 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     # ragged K3 (``starts``): first at the shape of ``mesh_moe``'s one-rank
     # all-to-all runs (E_loc 128, M 8,192: 1,024 tokens to their top 8 of
-    # 128, none dropped), in bf16 (its prefill) and float32 (its prefill
-    # and gradient step), whose launches these rows carry; then at one rank
-    # of the production mesh (qwen3-moe-235b-a22b train_4k on 16 x 16:
-    # E_loc 8, M 16 x 2,560, cf 1.25), a shape no run of this script
-    # reaches, whose rows name the run their launches come from
-    # (``launches_from``).  Each beside ``torch._grouped_mm`` with ``offs``
-    # (the segments' ends), which computes the same products in bf16.
+    # 128, none dropped), in bf16 and float32 (each dtype's prefill and
+    # gradient step), whose launches these rows carry; then at one rank of
+    # the production mesh (qwen3-moe-235b-a22b train_4k on 16 x 16: E_loc
+    # 8, M 16 x 2,560, cf 1.25), a shape no run of this script reaches,
+    # whose rows name the run their launches come from (``launches_from``);
+    # last an information row: the dense training capacity (E 128, C 640)
+    # seen as one packed buffer (starts[e] = 640 e, rows[e] = 640) on the
+    # ragged forward, beside the dense row above (the dense forward keeps
+    # its mma.sync kernel), held against the dense plain version, which
+    # computes the same function.  Each row names its route, checked on
+    # the route counters, and is beside ``torch._grouped_mm`` with
+    # ``offs`` (the segments' ends), which takes float32 too.
     nodrop = {"n_model": 1, "N": 1024, "cf": 128 / 8}
-    elsewhere = {
-        "moe_gmm": {"launches_from": A2A_BF16, "launches_at":
-                    "E 128, M 8192: no run reaches this shape"},
-        "moe_gmm_bwd": {"launches_from": A2A_F32, "launches_at":
-                        "E 128, M 8192 in float32 (the f32 route): no run "
-                        "reaches this shape or the tc route"}}
-    for path, at, dt, products, bwd_route, labels in (
+    elsewhere = {"launches_from": A2A_BF16,
+                 "launches_at": "E 128, M 8192: no run reaches this shape"}
+    packed = {"launches_from": A2A_BF16, "information": "the dense "
+              "training capacity as one packed buffer: no run reaches this "
+              "form; the dense forward keeps mma.sync"}
+    for path, at, dt, products, bwd, label in (
             (A2A_BF16 + ", one rank, no drop", nodrop, bf,
-             ((4096, 1536), (1536, 4096)), None, None),
+             ((4096, 1536), (1536, 4096)), True, {}),
             (A2A_F32 + ", one rank, no drop", nodrop, torch.float32,
-             ((4096, 1536),), "f32", None),
+             ((4096, 1536),), True, {}),
             (A2A_BF16 + ", one rank of 16x16 train_4k", {}, bf,
-             ((4096, 1536), (1536, 4096)), "tc", elsewhere)):
-        rows_a, starts_a, M = a2a_rank_rows(**at)
-        E = rows_a.shape[0]
+             ((4096, 1536), (1536, 4096)), True, elsewhere),
+            ("qwen3-moe-235b-a22b train, packed (information)", None, bf,
+             ((4096, 1536),), False, packed)):
+        if at is None:                    # E 128 x C 640 as packed rows
+            E, C = 128, 640
+            rows_a = torch.full((E,), C, dtype=torch.int32, device=dev)
+            starts_a = torch.arange(0, E * C, C, dtype=torch.int32,
+                                    device=dev)
+            M = E * C
+        else:
+            rows_a, starts_a, M = a2a_rank_rows(**at)
+            E = rows_a.shape[0]
         offs = torch.cumsum(rows_a, 0, dtype=torch.int32)
         dname = str(dt).removeprefix("torch.")
         for D, F_ in products:
@@ -1221,20 +1316,26 @@ def kernel_phase(torch, dev) -> list[dict]:
             w = k3_inputs(E, 1, D, F_, dt)[1]
             shape = {"E": E, "M": M, "D": D, "F": F_, "dtype": dname,
                      "ragged": True, "live_rows": int(rows_a.sum()),
-                     "rows": rows_a.tolist()}
-            grouped = dt == bf
-            row("moe_gmm", path,
-                {**shape, **(labels or {}).get("moe_gmm", {})},
-                (x, w, rows_a, starts_a),
-                ops.moe_gmm, ref.moe_gmm,
-                (lambda x, w, r, s: torch._grouped_mm(x, w, offs=offs))
-                if grouped else None,
+                     "rows": rows_a.tolist(),
+                     "route": k3._fwd_route(x, w, ragged=True), **label}
+            plain = ref.moe_gmm if at is not None else (
+                lambda x, w, r, s: ref.moe_gmm(
+                    x.view(E, C, D), w).reshape(E * C, F_))
+            ops.reset_launch_counts()
+            row("moe_gmm", path, shape, (x, w, rows_a, starts_a),
+                ops.moe_gmm, plain,
+                lambda x, w, r, s: torch._grouped_mm(x, w, offs=offs),
                 cost.moe_gmm(E, M, D, F_, dt, rows_a.tolist(), ragged=True),
                 "src/repro/kernels/moe_gmm.py:42", plain_reps=3)
+            route = "wgmma" if dt == bf else "f32"
+            need(shape["route"] == route and k3.launches > 0 and
+                 k3.routes == {**{r: 0 for r in k3.routes},
+                               route: k3.launches},
+                 f"moe_gmm {path} {D}: routes {k3.routes}, want {route}")
             if D == 4096:
                 trace("moe_gmm", path,
                       lambda: ops.moe_gmm(x, w, rows_a, starts_a))
-            if D != 4096 or bwd_route is None:
+            if D != 4096 or not bwd:
                 del x, w
                 continue
             dy = rand(M, F_, dtype=dt)
@@ -1245,22 +1346,20 @@ def kernel_phase(torch, dev) -> list[dict]:
             del twice
             ops.reset_launch_counts()
             row("moe_gmm_bwd", path,
-                {**shape, "route": bwd_route,
-                 **(labels or {}).get("moe_gmm_bwd", {})},
+                {**shape, "route": k3._route(x, w, dy)},
                 (x, w, dy, rows_a, starts_a), k3.backward,
                 ref.moe_gmm_backward,
-                (lambda x, w, dy, r, s: (
+                lambda x, w, dy, r, s: (
                     torch._grouped_mm(dy, w.transpose(1, 2), offs=offs),
-                    torch._grouped_mm(x.t(), dy, offs=offs)))
-                if grouped else None,
+                    torch._grouped_mm(x.t(), dy, offs=offs)),
                 cost.moe_gmm_bwd(E, M, D, F_, dt, rows_a.tolist(),
                                  ragged=True), no_pallas + "moe.py:76",
                 scaled=True, plain_reps=3)
-            need(k3.bwd_launches > 0 and k3.bwd_routes == {
-                **{r: 0 for r in k3.bwd_routes},
-                bwd_route: k3.bwd_launches},
+            need(rows[-1]["shape"]["route"] == route and k3.bwd_launches > 0
+                 and k3.bwd_routes == {**{r: 0 for r in k3.bwd_routes},
+                                       route: k3.bwd_launches},
                  f"moe_gmm_bwd {path}: routes {k3.bwd_routes}, "
-                 f"want {bwd_route}")
+                 f"want {route}")
             trace("moe_gmm_bwd", path,
                   lambda: k3.backward(x, w, dy, rows_a, starts_a))
             del x, w, dy
@@ -1323,7 +1422,7 @@ CUDA_NAMES = {
     "rwkv_scan_bwd": ("rwkv_bwd_",),
     "rglru_scan_bwd": ("rglru_bwd_",),
     "flash_attention": ("flash_attention_tc", "flash_attention_kernel"),
-    "moe_gmm": ("moe_gmm_tc", "moe_gmm_kernel"),
+    "moe_gmm": ("moe_gmm_wgmma", "moe_gmm_tc", "moe_gmm_kernel"),
     "rwkv_scan": ("chunk_state", "state_scan", "chunk_out", "rwkv_decode"),
     "rglru_scan": ("rglru_scan_windows", "rglru_scan_steps"),
 }
@@ -2183,10 +2282,14 @@ def mesh_moe(torch, dev, mesh) -> dict:
     nothing, in bf16 and in float32, the all-to-all dispatch (ragged K3)
     against the gather one; in bf16 also each K3 call of one all-to-all
     prefill against ``ref.moe_gmm`` on its own inputs, and both dispatches
-    on the plain path; then one float32 gradient through the all-to-all
-    dispatch (``mesh_a2a_grad``).  Returns the all-to-all runs' kernel
-    launches, keyed A2A_BF16 and A2A_F32."""
+    on the plain path; then one float32 and one bf16 gradient through
+    the all-to-all dispatch (``mesh_a2a_grad``).  K3's launches by kernel
+    (``moe_gmm.routes``): the bf16 all-to-all dispatch's on ``wgmma``, the
+    other bf16 runs' on ``tc``, float32 on ``f32``.  Returns the
+    all-to-all runs' kernel launches, keyed A2A_BF16 and A2A_F32 (each
+    dtype's prefill and gradient step)."""
     from repro_torch import configs
+    from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import ops, ref
     from repro_torch.models import init_params
     from repro_torch.serve import make_prefill
@@ -2199,8 +2302,11 @@ def mesh_moe(torch, dev, mesh) -> dict:
         0, cfg.vocab, (1, 1024), device=dev,
         generator=torch.Generator(dev).manual_seed(1))}
 
-    def run(c, m):
-        """(logits, launches, ms) of the second of two prefills."""
+    routes = {}                 # K3's launches by kernel, per run below
+
+    def run(c, m, name):
+        """(logits, launches, ms) of the second of two prefills; its K3
+        launches by kernel go to ``routes[name]``."""
         prefill = make_prefill(c, mesh=m)
         with torch.no_grad():
             prefill(params, batch)
@@ -2209,14 +2315,15 @@ def mesh_moe(torch, dev, mesh) -> dict:
             t0 = time.perf_counter()
             _, logits = prefill(params, batch)
             torch.cuda.synchronize()
+        routes[name] = {k: v for k, v in gmm.routes.items() if v}
         return logits, ops.launch_counts(), (time.perf_counter() - t0) * 1e3
 
-    def run_a2a(c):
+    def run_a2a(c, name):
         """``run`` of the all-to-all dispatch, with its peak memory."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        out = run(dataclasses.replace(c, moe_a2a=True), mesh)
+        out = run(dataclasses.replace(c, moe_a2a=True), mesh, name)
         return (*out, torch.cuda.max_memory_allocated())
 
     def k3_held(c):
@@ -2246,15 +2353,15 @@ def mesh_moe(torch, dev, mesh) -> dict:
             ops.moe_gmm = kernel
         return calls
 
-    plain, plain_counts, plain_ms = run(cfg, None)
-    gather, gather_counts, gather_ms = run(cfg, mesh)
+    plain, plain_counts, plain_ms = run(cfg, None, "no mesh")
+    gather, gather_counts, gather_ms = run(cfg, mesh, "gather")
     equal = torch.equal(plain, gather)
     del plain, gather
     # capacity factor E / k: every expert takes every token it is routed
     nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
                                  / cfg.top_k)
-    gbf, gbf_counts, gbf_ms = run(nodrop, mesh)
-    abf, abf_counts, abf_ms, abf_peak = run_a2a(nodrop)
+    gbf, gbf_counts, gbf_ms = run(nodrop, mesh, "gather bf16")
+    abf, abf_counts, abf_ms, abf_peak = run_a2a(nodrop, "a2a bf16")
     rel_bf16 = _rel(abf, gbf)
     finite = bool(torch.isfinite(abf).all())
     k3_calls = k3_held(nodrop)
@@ -2262,15 +2369,15 @@ def mesh_moe(torch, dev, mesh) -> dict:
     # moves these logits, beside the kernels' a2a against gather
     no_kernels = dataclasses.replace(nodrop, attn_impl="plain")
     pa, pa_counts, _ = run(dataclasses.replace(no_kernels, moe_a2a=True),
-                           mesh)
-    pg, pg_counts, _ = run(no_kernels, mesh)
+                           mesh, "a2a plain")
+    pg, pg_counts, _ = run(no_kernels, mesh, "gather plain")
     bf16_rel = {"a2a_vs_gather": rel_bf16, "a2a_vs_a2a_plain": _rel(abf, pa),
                 "gather_vs_gather_plain": _rel(gbf, pg),
                 "a2a_plain_vs_gather_plain": _rel(pa, pg)}
     del gbf, abf, pa, pg
     _cast_tree(params, torch.float32)
-    g32, g32_counts, g32_ms = run(nodrop, mesh)
-    a2a, a2a_counts, a2a_ms, a2a_peak = run_a2a(nodrop)
+    g32, g32_counts, g32_ms = run(nodrop, mesh, "gather float32")
+    a2a, a2a_counts, a2a_ms, a2a_peak = run_a2a(nodrop, "a2a float32")
     rel = _rel(a2a, g32)
     finite &= bool(torch.isfinite(a2a).all())
     emit({"phase": "mesh_moe", "arch": cfg.name,
@@ -2288,6 +2395,7 @@ def mesh_moe(torch, dev, mesh) -> dict:
                          "gather_float32_nodrop": g32_ms,
                          "a2a_float32_nodrop": a2a_ms},
           "a2a_vs_gather_rel_l2": {"bfloat16": rel_bf16, "float32": rel},
+          "k3_routes": routes,
           "bf16_rel_l2": bf16_rel, "a2a_bf16_k3_calls": k3_calls,
           "tol": {dt: LOGIT_REL_TOL[dt] for dt in ("bfloat16", "float32")},
           "a2a_peak_memory": {"bfloat16": abf_peak, "float32": a2a_peak},
@@ -2301,6 +2409,12 @@ def mesh_moe(torch, dev, mesh) -> dict:
                          ("a2a float32", a2a_counts)):
         need({k: v for k, v in counts.items() if v} == want,
              f"MoE prefill {name}: launches {counts}, want {want}")
+        # the bf16 all-to-all dispatch on wgmma, the gather's dense calls
+        # on mma.sync, float32 on CUDA cores
+        route = ("f32" if "float32" in name else
+                 "wgmma" if name == "a2a bf16" else "tc")
+        need(routes[name] == {route: 3 * MOE_LAYERS},
+             f"MoE prefill {name}: K3 routes {routes[name]}, want {route}")
     need(not any(pa_counts.values()) and not any(pg_counts.values()),
          f"the plain path launched {pa_counts} / {pg_counts}")
     need(len(k3_calls) == 3 * MOE_LAYERS and all(
@@ -2316,68 +2430,131 @@ def mesh_moe(torch, dev, mesh) -> dict:
     del params, a2a, g32, batch
     gc.collect()
     torch.cuda.empty_cache()
-    grad_counts = mesh_a2a_grad(torch, dev, mesh, nodrop)
-    return {A2A_BF16: abf_counts,
-            A2A_F32: {k: a2a_counts[k] + grad_counts[k] for k in grad_counts}}
+    grads = {dt: mesh_a2a_grad(torch, dev, mesh, nodrop, dt)
+             for dt in ("float32", "bfloat16")}
+    return {A2A_BF16: {k: abf_counts[k] + n
+                       for k, n in grads["bfloat16"].items()},
+            A2A_F32: {k: a2a_counts[k] + n
+                      for k, n in grads["float32"].items()}}
 
 
-def mesh_a2a_grad(torch, dev, mesh, cfg) -> dict:
-    """One float32 gradient of ``loss_fn`` through ``moe_shardmap``'s
-    all-to-all dispatch on ``mesh``: ``cfg`` (no token dropped) at one
+def mesh_a2a_grad(torch, dev, mesh, cfg, dtype: str) -> dict:
+    """One gradient of ``loss_fn`` through ``moe_shardmap``'s all-to-all
+    dispatch on ``mesh`` in ``dtype``: ``cfg`` (no token dropped) at one
     layer, B=1, T=1024, the kernel path (K2, ragged K3 and their
-    backwards) against the plain path, each leaf by relative L2 at 2e-3
-    as the train phases hold theirs.  Returns the kernel path's
-    launches."""
+    backwards) against the plain path, each leaf by relative L2 at
+    A2A_GRAD_TOL; in bf16 also the loss at 1e-2 of the plain path's, as
+    the train phases hold their first bf16 loss, each leaf at TOLS against
+    the kernel path with only K3 on its plain version (no routing choice
+    can flip: the one layer routes before K3), and, in one more kernel
+    gradient, each K3 backward call against ``ref.moe_gmm_backward`` on
+    its own inputs (the routing's rows and starts) at TOLS of its largest
+    entry.  Returns the kernel path's launches."""
     from repro_torch import configs
     from repro_torch.core.torchstate import tree_leaves
     from repro_torch.kernels import moe_gmm as gmm
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import init_params, loss_fn
     from repro_torch.train import shard_batch, synthetic_batches
 
-    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=1,
-                              moe_a2a=True)
+    c = dataclasses.replace(cfg, dtype=dtype, n_layers=1, moe_a2a=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = init_params(c32, torch.Generator(dev).manual_seed(0),
+    params = init_params(c, torch.Generator(dev).manual_seed(0),
                          device=dev)
-    batch = shard_batch(None, next(synthetic_batches(c32.vocab, 1, 1024,
+    batch = shard_batch(None, next(synthetic_batches(c.vocab, 1, 1024,
                                                      seed=0)), device=dev)
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    loss_k = loss_fn(c32, params, batch, mesh=mesh)
+    loss_k = loss_fn(c, params, batch, mesh=mesh)
     got = torch.autograd.grad(loss_k, leaves)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
-    counts, routes = ops.launch_counts(), dict(gmm.bwd_routes)
+    counts = ops.launch_counts()
+    routes = {"forward": dict(gmm.routes), "backward": dict(gmm.bwd_routes)}
     t0 = time.perf_counter()
-    loss_p = loss_fn(dataclasses.replace(c32, attn_impl="plain"), params,
+    loss_p = loss_fn(dataclasses.replace(c, attn_impl="plain"), params,
                      batch, mesh=mesh)
     want = torch.autograd.grad(loss_p, leaves)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    rels = [float((a - b).norm() / b.norm().clamp_min(1e-30))
-            for a, b in zip(got, want)]
+    def rel_l2(xs, ys):
+        return [float((a.float() - b.float()).norm()
+                      / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(xs, ys)]
+
+    rels = rel_l2(got, want)
+    del want
+    calls, k3_rels = [], []
+    if dtype == "bfloat16":
+        # the same path with only K3 and its backward on their plain
+        # versions (K2 the kernel in both): one layer routes before K3, so
+        # no top-8 choice can flip, and what is left is K3's own rounding
+        kernel_fwd = ops.moe_gmm
+        ops.moe_gmm = ref.moe_gmm
+        try:
+            k3_rels = rel_l2(got, torch.autograd.grad(
+                loss_fn(c, params, batch, mesh=mesh), leaves))
+        finally:
+            ops.moe_gmm = kernel_fwd
+        kernel = gmm.backward
+
+        def held(x, w, dy, rows=None, starts=None):
+            out = kernel(x, w, dy, rows, starts)
+            errs = [_scaled_err(a, b) for a, b in zip(
+                out, ref.moe_gmm_backward(x, w, dy, rows, starts))]
+            calls.append({"M": x.shape[0], "D": x.shape[1],
+                          "F": w.shape[2], "live_rows": int(rows.sum()),
+                          "route": gmm._route(x, w, dy),
+                          "grad_err_of_scale": errs,
+                          "ok": max(errs) <= TOLS[dtype]})
+            return out
+
+        gmm.backward = held
+        try:
+            torch.autograd.grad(loss_fn(c, params, batch, mesh=mesh), leaves)
+        finally:
+            gmm.backward = kernel
+    del got
+    tol = A2A_GRAD_TOL[dtype]
     expect = {"moe_gmm": 6, "moe_gmm_bwd": 3, "flash_attention": 2,
               "flash_attention_bwd": 1}
-    emit({"phase": "mesh_moe_a2a_grad", "arch": c32.name, "layers": 1,
+    route = "wgmma" if dtype == "bfloat16" else "f32"
+    emit({"phase": "mesh_moe_a2a_grad", "arch": c.name, "layers": 1,
           "reduced": {"n_layers": [configs.get("qwen3_moe_235b").n_layers,
-                                   1], "why": "float32 parameters "
-                      "and two sets of gradients of one layer at full "
-                      "width on one card"},
-          "dtype": "float32", "B": 1, "T": 1024,
-          "capacity_factor": c32.capacity_factor,
+                                   1], "why": "the parameters and two sets "
+                      "of gradients of one layer at full width on one "
+                      "card"},
+          "dtype": dtype, "B": 1, "T": 1024,
+          "capacity_factor": c.capacity_factor,
           "loss": float(loss_k.detach()), "plain_loss": float(loss_p.detach()),
-          "leaves": len(rels), "max_leaf_rel_l2": max(rels), "tol": 2e-3,
-          "launches": counts, "moe_gmm_bwd_routes": routes,
+          "leaves": len(rels), "leaf_rel_l2": rels,
+          "max_leaf_rel_l2": max(rels), "tol": tol,
+          "leaf_rel_l2_vs_plain_k3": k3_rels,
+          "launches": counts, "moe_gmm_routes": routes,
+          "k3_bwd_calls": calls,
           "kernel_path_s": kernel_s, "plain_path_s": plain_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     need({k: v for k, v in counts.items() if v} == expect,
-         f"a2a gradient launches {counts}, want {expect}")
-    need(routes == {"wgmma": 0, "tc": 0, "f32": 3},
-         f"a2a gradient: K3 backward routes {routes}, want f32 3")
-    need(max(rels) <= 2e-3, f"a2a gradients: largest leaf rel L2 "
-         f"{max(rels)} > 2e-3")
+         f"a2a gradient {dtype}: launches {counts}, want {expect}")
+    need(routes == {"forward": {**{r: 0 for r in gmm.routes}, route: 6},
+                    "backward": {**{r: 0 for r in gmm.bwd_routes},
+                                 route: 3}},
+         f"a2a gradient {dtype}: K3 routes {routes}, want {route}")
+    need(max(rels) <= tol, f"a2a gradients {dtype}: largest leaf rel L2 "
+         f"{max(rels)} > {tol}")
+    if dtype == "bfloat16":
+        lk, lp = float(loss_k.detach()), float(loss_p.detach())
+        need(abs(lk - lp) <= 1e-2 * abs(lp),
+             f"a2a gradient bf16: loss {lk} against the plain path's {lp}")
+        need(max(k3_rels) <= TOLS[dtype],
+             f"a2a gradients bf16 against plain K3: largest leaf rel L2 "
+             f"{max(k3_rels)} > {TOLS[dtype]}")
+        need(len(calls) == 3 and all(k["ok"] and k["route"] == route
+                                     for k in calls),
+             f"a2a gradient bf16: K3 backward calls {calls}")
     return counts
 
 

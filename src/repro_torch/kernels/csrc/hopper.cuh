@@ -1,6 +1,7 @@
 // Hopper-only helpers shared by the kernels that run on warpgroup wgmma
-// fed by TMA (K3's backward, csrc/moe_gmm_bwd.cu; K2's backward at head
-// dim 128, csrc/flash_attention_bwd.cu): mbarriers, TMA tile loads
+// fed by TMA (K3's grouped main loop, csrc/gmm_wgmma.cuh: its backward and
+// its ragged forward; K2's backward at head dim 128,
+// csrc/flash_attention_bwd.cu): mbarriers, TMA tile loads
 // (cp.async.bulk.tensor, 3-D and 4-D), wgmma's shared-memory matrix
 // descriptors, the wgmma shapes those kernels issue, and the tensor maps
 // (cuTensorMapEncodeTiled, reached through the runtime, so no -lcuda).

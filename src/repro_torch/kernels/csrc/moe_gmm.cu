@@ -20,9 +20,10 @@
 // tiles by the F tiles, enough for any counts; each block finds its
 // expert and tile from the counts on the device (ragged.cuh) and the
 // blocks past the last tile exit.  Loads past a segment's end are zero
-// filled (those rows are the next expert's) and stores stop there; rows of
-// no expert are never written (the wrapper allocates y as zeros).  The
-// tile height follows the mean rows an expert, ceil(M / E).
+// filled (mma.sync, float32) or multiplied and not stored (wgmma: those
+// rows are the next expert's) and stores stop there; rows of no expert are
+// never written (the wrapper allocates y as zeros).  The mma.sync and
+// float32 tile height follows the mean rows an expert, ceil(M / E).
 //
 // What bounds it on the H100: bytes.  Each expert's w is read once per C
 // tile and used for only C rows; at the serving shapes (C = 4 in decode,
@@ -51,6 +52,17 @@
 // a strided x), the chunk is copied element by element with zero fill.
 // m16 tiles wholly past the live rows skip their products.
 //
+// bf16 ragged where TMA can read x and w (moe_gmm_wgmma; the wrapper's
+// _route: 16-byte aligned bases and strides): warpgroup wgmma fed by TMA,
+// the grouped main loop of gmm_wgmma.cuh (its design note there) with A =
+// x K-major (boxes of 64 D x 128 rows from the segment's first row) and
+// B = w[e] N-major (boxes of 64 F x 64 D): tiles of 128 rows by 256
+// columns of F, D in stages of 64, the ragged grid of ragged.cuh, and
+// stores that stop at the segment's end.  Its bound at the all-to-all
+// dispatch's training shapes is operations (hundreds of rows an expert),
+// where mma.sync ran at about a fifth of the bf16 peak.  The dense bf16
+// forward stays on moe_gmm_tc.
+//
 // float32 (moe_gmm_kernel): CUDA cores, so the callers that hold the MoE
 // in float32 keep full float32 products (TF32 would carry about three
 // decimal digits).  One 256-thread block per (expert, tile of BM rows of
@@ -68,6 +80,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gmm_wgmma.cuh"        // Gemm, Ragged, the wgmma main loop
 #include "mma_sync.cuh"
 #include "ragged.cuh"
 
@@ -558,26 +571,59 @@ int dispatch_tc(const Args& a, int R) {
   }
 }
 
+// ---------------------------------------------------------------------------
+//  bf16 ragged: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+// One block per (ragged_tile's tile of 128 rows, N tile of 256): y = x w[e]
+// as gmm_wgmma.cuh's <A K-major, B N-major> along a ragged M.
+__global__ void __launch_bounds__(kWgThreads, 1)
+moe_gmm_wgmma(const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tw, Gemm g) {
+  gmm_wgmma<false, false, Ragged::kM>(tx, tw, g);
+}
+
+// x (C, D) packed, w (E, D, F), y (C, F): bases and strides but the unit
+// ones 16-byte aligned (the wrapper's _route)
+int launch_wgmma(const Args& a) {
+  static unsigned done = 0;
+  const long long* st = a.st;
+  CUtensorMap tx, tw;
+  if (!tensor_map(&tx, a.x, 1, a.C, a.D, a.C * st[1], st[1], kWgBK, kWgBM) ||
+      !tensor_map(&tw, a.w, a.E, a.D, a.F, st[2], st[3], 64, kWgBK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = smem_once((const void*)moe_gmm_wgmma, kWgSmem, &done);
+  if (err != cudaSuccess) return (int)err;
+  const Gemm g{a.x, a.w, a.y, a.rows, a.starts, a.E, a.C, a.F, a.D, true,
+               false, 0, st[1], st[2], st[3], 0, st[5]};
+  moe_gmm_wgmma<<<grid_of<Ragged::kM>(g, kWgBM, kWgBN), kWgThreads, kWgSmem,
+                  a.s>>>(tx, tw, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// elem_bytes: 4 = float32, 2 = bfloat16 (x, w and y all of it).  rows: null,
-// or (E,) int32 on the device, the live rows of each expert.  starts: null
-// (dense: x (E, C, D), y (E, C, F)), or (E,) int32 on the device with rows
-// (ragged: x (C, D) and y (C, F) packed, expert e's rows starts[e] ..
-// starts[e] + rows[e], not overlapping; y's rows of no expert are left as
-// they are, so the caller allocates y as zeros).  strides (elements):
-// x_se, x_sc, w_se, w_sd, y_se, y_sc (x_se, y_se unused ragged); the last
-// dimension of every tensor has unit stride.  Returns a cudaError_t (0 on
-// success).
-extern "C" int repro_moe_gmm(int elem_bytes, const void* x, const void* w,
-                             void* y, const void* rows, const void* starts,
-                             int E, int C, int D, int F,
+// elem_bytes: 4 = float32, 2 = bfloat16 (x, w and y all of it).  wgmma: 1
+// takes the TMA / wgmma kernel (bf16 and ragged only, every base and every
+// stride but the unit one 16-byte aligned), 0 the mma.sync or float32 one.
+// rows: null, or (E,) int32 on the device, the live rows of each expert.
+// starts: null (dense: x (E, C, D), y (E, C, F)), or (E,) int32 on the
+// device with rows (ragged: x (C, D) and y (C, F) packed, expert e's rows
+// starts[e] .. starts[e] + rows[e], not overlapping; y's rows of no expert
+// are left as they are, so the caller allocates y as zeros).  strides
+// (elements): x_se, x_sc, w_se, w_sd, y_se, y_sc (x_se, y_se unused
+// ragged); the last dimension of every tensor has unit stride.  Returns a
+// cudaError_t (0 on success).
+extern "C" int repro_moe_gmm(int elem_bytes, int wgmma, const void* x,
+                             const void* w, void* y, const void* rows,
+                             const void* starts, int E, int C, int D, int F,
                              const long long* strides, void* stream) {
-  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 || (starts && !rows))
+  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 || (starts && !rows) ||
+      (wgmma && (elem_bytes != 2 || !starts)))
     return (int)cudaErrorInvalidValue;
   const Args a{x, w, y, static_cast<const int*>(rows),
                static_cast<const int*>(starts), E, C, D, F, strides,
                static_cast<cudaStream_t>(stream)};
+  if (wgmma) return launch_wgmma(a);
   const int R = starts ? (C + E - 1) / E : C;
   if (elem_bytes == 4) return dispatch_f32(a, R);
   if (elem_bytes == 2) return dispatch_tc(a, R);

@@ -27,9 +27,11 @@ ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 launches = 0                    # forward launches since the last reset
 bwd_launches = 0                # backward calls (two CUDA launches each)
-# backward calls by kernel since the last reset: "wgmma" (TMA and wgmma,
-# bf16 with aligned operands), "tc" (mma.sync, the other bf16 calls) and
-# "f32" (CUDA cores); see ``_route``
+# forward launches and backward calls by kernel since the last reset:
+# "wgmma" (TMA and wgmma, bf16 with aligned operands: every backward, the
+# ragged forward), "tc" (mma.sync: the other bf16 calls, every dense
+# forward) and "f32" (CUDA cores); see ``_route``
+routes = {"wgmma": 0, "tc": 0, "f32": 0}
 bwd_routes = {"wgmma": 0, "tc": 0, "f32": 0}
 _fn = None
 _bwd_fn = None
@@ -39,7 +41,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("moe_gmm").repro_moe_gmm
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -108,7 +110,9 @@ def _strides(*ts) -> list[int]:
 
 def forward(x, w, rows=None, starts=None):
     """One K3 launch on checked inputs -> y (E,C,F) in x.dtype, or (M,F)
-    ragged (allocated as zeros: the rows of no expert stay zero)."""
+    ragged (allocated as zeros: the rows of no expert stay zero), on the
+    kernel ``_fwd_route`` names.  A launch that fails raises: no other
+    kernel is tried."""
     global launches
     E, D, F = w.shape
     ragged = starts is not None
@@ -121,33 +125,42 @@ def forward(x, w, rows=None, starts=None):
                     D=D, F=F, dtype=x.dtype, ragged=ragged)
         return y
     strides = (ctypes.c_longlong * 6)(*_strides(x, w, y))
+    route = _fwd_route(x, w, ragged)
     fn = _kernel()
     with torch.cuda.device(x.device):
-        rc = fn(ELEM_BYTES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                _ptr(rows), _ptr(starts), E, C, D, F, strides, _stream(x))
+        rc = fn(ELEM_BYTES[x.dtype], int(route == "wgmma"), x.data_ptr(),
+                w.data_ptr(), y.data_ptr(), _ptr(rows), _ptr(starts), E, C,
+                D, F, strides, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"moe_gmm kernel launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"moe_gmm kernel launch failed ({route}): "
+                           f"cudaError_t {rc}")
     launches += 1
+    routes[route] += 1
     return y
 
 
-def _route(x, w, dy, ragged: bool = False) -> str:
-    """The backward kernel a call takes, chosen before the launch from the
-    operands alone: "wgmma" for bf16 whose x, w and dy TMA can read (each
-    base and each stride but the unit last one a multiple of 16 bytes,
-    rows that do not overlap), "tc" for the other bf16 calls, ragged ones
-    among them (TMA cannot stop a box at a segment's end), "f32" for
-    float32."""
+def _route(x, w, dy=None) -> str:
+    """The kernel a call takes, chosen before the launch from the operands
+    alone: "wgmma" for bf16 whose x, w and (the backward's) dy TMA can read,
+    dense (E, rows, cols) or packed (rows, cols) when ragged: each base and
+    each stride but the unit last one a multiple of 16 bytes, rows that do
+    not overlap; "tc" for the other bf16 calls, "f32" for float32.  The
+    dense forward takes "tc" whatever this says (``_fwd_route``)."""
     if x.dtype != torch.bfloat16:
         return "f32"
-    if ragged:
-        return "tc"
-    for t in (x, w, dy):
-        se, sr, sc = t.stride()
+    for t in (x, w) if dy is None else (x, w, dy):
+        *se, sr, sc = t.stride()
+        se = se[0] if se else t.shape[0] * sr    # a packed one: E = 1
         if (t.data_ptr() % 16 or sc != 1 or (2 * sr) % 16 or (2 * se) % 16
-                or sr < t.shape[2] or se < t.shape[1] * sr):
+                or sr < t.shape[-1] or se < t.shape[-2] * sr):
             return "tc"
     return "wgmma"
+
+
+def _fwd_route(x, w, ragged: bool) -> str:
+    """The forward's kernel: ``_route``'s for a ragged call; a dense bf16
+    call stays on mma.sync, "tc"."""
+    return _route(x, w) if ragged or x.dtype != torch.bfloat16 else "tc"
 
 
 def backward(x, w, dy, rows=None, starts=None):
@@ -178,7 +191,7 @@ def backward(x, w, dy, rows=None, starts=None):
                     C=C, D=D, F=F, dtype=x.dtype, ragged=ragged)
         return dx, dw
     st = (ctypes.c_longlong * 10)(*_strides(x, w, dy, dx, dw))
-    route = _route(x, w, dy, ragged)
+    route = _route(x, w, dy)
     fn = _bwd_kernel()
     with torch.cuda.device(x.device):
         rc = fn(ELEM_BYTES[x.dtype], int(route == "wgmma"), x.data_ptr(),

@@ -84,7 +84,8 @@ def launch_counts() -> dict[str, int]:
     ``BACKWARDS`` apart from its forward (K2's backward is three CUDA
     launches, or four with its heads split; K3's two, K4's four, K5's
     one).  ``bwd_routes`` of ``flash_attention``, ``moe_gmm`` and
-    ``rwkv_scan`` split their backward calls by kernel."""
+    ``rwkv_scan`` split their backward calls by kernel, and
+    ``moe_gmm.routes`` its forward launches."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     for name in BACKWARDS:
         counts[f"{name}_bwd"] = KERNELS[name].bwd_launches
@@ -99,3 +100,5 @@ def reset_launch_counts() -> None:
     for mod in (_flash, _gmm, _rwkv):
         for route in mod.bwd_routes:
             mod.bwd_routes[route] = 0
+    for route in _gmm.routes:
+        _gmm.routes[route] = 0

@@ -910,7 +910,17 @@ def ragged_rows(kind, E, M):
     """(rows, starts) lists of a packed buffer of M rows, each expert's
     segment after the last: "odd" counts (segment ends no multiple of 16,
     empty experts) that leave rows of no expert at the end; "all": one
-    expert holds all M rows; "full": seeded counts summing to M."""
+    expert holds all M rows; "full": seeded counts summing to M.  "gaps":
+    the "odd" counts in reverse expert order, each segment after a gap of
+    3 to 7 rows of no expert (the last experts' cut at M)."""
+    if kind == "gaps":
+        rows, starts, at = [0] * E, [0] * E, 0
+        for e in reversed(range(E)):
+            at = min(at + 3 + e % 5, M)
+            rows[e] = min(M - at, (37, 0, 100, 1, 63, 65, 0, 19)[e % 8])
+            starts[e] = at
+            at += rows[e]
+        return rows, starts
     if kind == "all":
         rows = [M if e == E // 2 else 0 for e in range(E)]
     elif kind == "odd":
@@ -927,8 +937,11 @@ def ragged_rows(kind, E, M):
     return rows, starts
 
 
+# F = 260 and 129 leave w's rows unaligned for TMA (the mma.sync route in
+# bf16); (128, 4000, 256, 192) and (8, 1000, 136, 264) take wgmma, the
+# latter with a last D stage of 8 and a second N tile of 8 columns
 RAGGED_SHAPES = [(8, 640, 520, 260), (4, 1000, 300, 129),
-                 (128, 4000, 256, 192)]
+                 (128, 4000, 256, 192), (8, 1000, 136, 264)]
 
 
 def _ragged_inputs(cuda, dtype, kind, E, M, D, F):
@@ -938,26 +951,33 @@ def _ragged_inputs(cuda, dtype, kind, E, M, D, F):
     w = torch.randn((2, E, D, F), generator=g, device=cuda).to(dt)[1]
     rows, starts = (torch.tensor(v, dtype=torch.int32, device=cuda)
                     for v in ragged_rows(kind, E, M))
-    owned = torch.zeros(M, dtype=torch.bool, device=cuda)
-    owned[:int(rows.sum())] = True            # the rows of some expert
+    owned = ref._segments(rows, starts, M).any(0)   # the rows of some expert
     return x, w, rows, starts, owned
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["odd", "all", "full"])
+@pytest.mark.parametrize("kind", ["odd", "all", "full", "gaps"])
 @pytest.mark.parametrize("E,M,D,F", RAGGED_SHAPES)
 def test_cuda_moe_gmm_ragged_matches_plain(cuda, dtype, kind, E, M, D, F):
     """Ragged K3 (``starts``, the all-to-all dispatch's packed buffer)
     against the ragged ``ref.moe_gmm``: segment ends no multiple of 16,
-    empty experts, one expert holding every row and rows of no expert,
+    empty experts, one expert holding every row, abutting segments and
+    segments in reverse expert order with gaps, and rows of no expert,
     which must stay exact zeros; 128 experts (the tile search over more
-    than one warp of counts); an F no 16-byte row divides."""
+    than one warp of counts); an F no 16-byte row divides.  The call takes
+    the kernel ``moe_gmm._fwd_route`` names: wgmma in bf16 where TMA can
+    read x and w, mma.sync else, CUDA cores in float32."""
+    from repro_torch.kernels import moe_gmm as k3
     x, w, rows, starts, owned = _ragged_inputs(cuda, dtype, kind, E, M, D, F)
     ops.reset_launch_counts()
     got = ops.moe_gmm(x, w, rows, starts)
     torch.cuda.synchronize()
     assert ops.launch_counts()["moe_gmm"] == 1 and got.shape == (M, F)
+    route = k3._fwd_route(x, w, ragged=True)
+    assert route == ("f32" if dtype == "float32" else
+                     "wgmma" if F % 8 == 0 else "tc")
+    assert k3.routes == {k: int(k == route) for k in k3.routes}
     assert not got[~owned].any()
     torch.testing.assert_close(got.float(),
                                ref.moe_gmm(x, w, rows, starts).float(),
@@ -966,15 +986,16 @@ def test_cuda_moe_gmm_ragged_matches_plain(cuda, dtype, kind, E, M, D, F):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["odd", "all", "full"])
+@pytest.mark.parametrize("kind", ["odd", "all", "full", "gaps"])
 @pytest.mark.parametrize("E,M,D,F", RAGGED_SHAPES)
 def test_cuda_moe_gmm_ragged_backward_matches_plain(cuda, dtype, kind, E, M,
                                                     D, F):
     """Ragged K3's backward against autograd of the ragged ``ref.moe_gmm``
     and against ``ref.moe_gmm_backward``: dx exact zeros on the rows of no
-    expert, dw zeros for an empty expert, the ``tc`` route in bf16 (TMA
-    cannot stop at a segment's end) and ``f32`` in float32; each gradient
-    at its tolerance of its largest entry."""
+    expert, dw zeros for an empty expert, on the route ``moe_gmm._route``
+    names (``wgmma`` in bf16 where TMA can read x, w and dy, ``tc`` else,
+    ``f32`` in float32), the forward on ``_fwd_route``'s; each gradient at
+    its tolerance of its largest entry."""
     from repro_torch.kernels import moe_gmm as k3
     x0, w0, rows, starts, owned = _ragged_inputs(cuda, dtype, kind, E, M, D,
                                                  F)
@@ -986,13 +1007,50 @@ def test_cuda_moe_gmm_ragged_backward_matches_plain(cuda, dtype, kind, E, M,
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["moe_gmm"], counts["moe_gmm_bwd"]) == (1, 1)
-    route = "f32" if dtype == "float32" else "tc"
+    route = k3._route(x, w, dy)
+    assert route == ("f32" if dtype == "float32" else
+                     "wgmma" if F % 8 == 0 else "tc")
     assert k3.bwd_routes == {k: int(k == route) for k in k3.bwd_routes}
+    assert k3.routes == {k: int(k == route) for k in k3.routes}
     assert not got[0][~owned].any() and not got[1][rows == 0].any()
     want = torch.autograd.grad(ref.moe_gmm(x, w, rows, starts), (x, w), dy)
     _scaled_close(got, want, TOLS[dtype])
     _scaled_close(got, ref.moe_gmm_backward(x.detach(), w.detach(), dy, rows,
                                             starts), TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,F", [(4096, 1536), (1536, 4096)])
+def test_cuda_moe_gmm_ragged_at_a_production_rank(cuda, D, F):
+    """One rank of qwen3-moe-235b-a22b train_4k on 16 x 16: 8 experts,
+    M = 40,960 packed rows of which seeded counts fill 33,059, gate/up and
+    down in bf16: forward and backward on wgmma against the plain
+    versions, the rows of no expert exact zeros."""
+    from repro_torch.kernels import moe_gmm as k3
+    E, M = 8, 40960
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((M, D), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn((E, D, F), generator=g, device=cuda).to(torch.bfloat16)
+    dy = torch.randn((M, F), generator=g, device=cuda).to(torch.bfloat16)
+    rows, starts = (torch.tensor(v, dtype=torch.int32, device=cuda)
+                    for v in ragged_rows("full", E, 33059))
+    owned = ref._segments(rows, starts, M).any(0)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    ops.reset_launch_counts()
+    y = ops.moe_gmm(x, w, rows, starts)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    torch.cuda.synchronize()
+    assert k3.routes == {"wgmma": 1, "tc": 0, "f32": 0}
+    assert k3.bwd_routes == {"wgmma": 1, "tc": 0, "f32": 0}
+    assert not y[~owned].any() and not dx[~owned].any()
+    with torch.no_grad():
+        torch.testing.assert_close(y.float(),
+                                   ref.moe_gmm(x, w, rows, starts).float(),
+                                   rtol=TOLS["bfloat16"],
+                                   atol=TOLS["bfloat16"])
+        _scaled_close((dx, dw), ref.moe_gmm_backward(x, w, dy, rows, starts),
+                      TOLS["bfloat16"])
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@ Python before any launch, held at every training path shape of
 ``PERF.md`` §6: which kernels K2's backward takes
 (``flash_attention._bwd_route``) and how many blocks share a group's query
 heads in its dK/dV launch (``flash_attention._dkdv_splits``), which kernel
-K3's backward takes (``moe_gmm._route``) and which K4's takes
+K3's forward and backward take (``moe_gmm._fwd_route``, ``_route``; dense
+and ragged) and which K4's takes
 (``rwkv_scan._bwd_route``).  Shapes at full size use meta tensors, which
 carry shapes, strides and offsets but no storage.  CPU tensors never reach
 these kernels: they take the plain backwards of ``kernels/ref.py``.
@@ -98,6 +99,64 @@ def test_route_refuses_overlapping_rows():
     assert k3._route(x[:1].expand(4, 64, 512), w, dy) == "tc"
 
 
+def _packed(E, M, D, F, dtype=BF, pad_x=0, offset_x=0, pad_dy=0):
+    """The all-to-all dispatch's ragged operands on the meta device: x (M,
+    D) packed, a view of (M, D + pad_x) starting offset_x elements in; w
+    (E, D, F) as one layer's view of a stacked leaf; dy (M, F), a view of
+    (M, F + pad_dy)."""
+    x = torch.empty((M, D + pad_x + offset_x), dtype=dtype,
+                    device="meta")[:, offset_x:offset_x + D]
+    w = torch.empty((2, E, D, F), dtype=dtype, device="meta")[1]
+    dy = torch.empty((M, F + pad_dy), dtype=dtype, device="meta")[:, :F]
+    return x, w, dy
+
+
+@pytest.mark.parametrize("E,M,D,F,pad_x,offset_x,pad_dy,route", [
+    (8, 40960, 4096, 1536, 0, 0, 0, "wgmma"),   # one rank of 16x16 train_4k
+    (8, 40960, 1536, 4096, 0, 0, 0, "wgmma"),   # its down product
+    (128, 8192, 4096, 1536, 0, 0, 0, "wgmma"),  # mesh_moe's one rank
+    (128, 4000, 256, 192, 0, 0, 0, "wgmma"),
+    (4, 100, 520, 256, 8, 0, 8, "wgmma"),       # strided but aligned rows
+    (4, 100, 13, 40, 0, 0, 0, "tc"),            # D = 13: x's rows, w's E
+    (4, 100, 24, 259, 0, 0, 0, "tc"),           # F = 259: w's rows
+    (4, 100, 512, 256, 0, 1, 0, "tc"),          # x's base 2 bytes off
+    (4, 100, 512, 256, 4, 0, 0, "tc"),          # x's rows of 516
+    (4, 100, 512, 256, 0, 0, 4, "tc")])         # dy's rows of 260
+def test_route_on_packed_ragged_operands(E, M, D, F, pad_x, offset_x,
+                                         pad_dy, route):
+    """Ragged calls take the TMA / wgmma kernels, forward and backward,
+    where TMA can read the packed 2-D x (and dy) and w: 16-byte aligned
+    bases and row strides; else mma.sync; float32 the CUDA-core ones.  The
+    forward reads no dy: an unaligned dy leaves it on wgmma."""
+    x, w, dy = _packed(E, M, D, F, pad_x=pad_x, offset_x=offset_x,
+                       pad_dy=pad_dy)
+    assert k3._route(x, w, dy) == route
+    assert k3._fwd_route(x, w, ragged=True) == \
+        ("wgmma" if pad_dy else route)
+    f32 = _packed(E, M, D, F, dtype=torch.float32, pad_x=pad_x,
+                  offset_x=offset_x, pad_dy=pad_dy)
+    assert k3._route(*f32) == "f32"
+    assert k3._fwd_route(*f32[:2], ragged=True) == "f32"
+
+
+@pytest.mark.parametrize("E,C,D,F", [(128, 640, 4096, 1536),
+                                     (128, 80, 1536, 4096), (3, 1, 64, 8)])
+def test_dense_forward_stays_on_the_mma_sync_kernel(E, C, D, F):
+    """A dense bf16 forward takes "tc" even where TMA could read its
+    operands (its backward takes wgmma); float32 "f32"."""
+    x, w, dy = _k3(E, C, D, F)
+    assert k3._route(x, w, dy) == "wgmma"
+    assert k3._fwd_route(x, w, ragged=False) == "tc"
+    assert k3._fwd_route(*_k3(E, C, D, F, dtype=torch.float32)[:2],
+                         ragged=False) == "f32"
+
+
+def test_route_refuses_overlapping_packed_rows():
+    """An expanded (stride 0) packed x is not a tensor TMA can map."""
+    x, w, dy = _packed(4, 100, 512, 256)
+    assert k3._route(x[:1].expand(100, 512), w, dy) == "tc"
+
+
 @pytest.mark.parametrize("causal,window,Hkv", [(True, 0, 1), (True, 3, 2),
                                                (False, 0, 4)])
 def test_cpu_attention_gradient_is_the_plain_backward(causal, window, Hkv):
@@ -137,7 +196,7 @@ def test_cpu_moe_gmm_gradient_is_the_plain_backward(rows):
     ops.reset_launch_counts()
     got = torch.autograd.grad(ops.moe_gmm(x, w, r), (x, w), dy)
     assert not any(ops.launch_counts().values())
-    assert not any(k3.bwd_routes.values())
+    assert not any(k3.bwd_routes.values()) and not any(k3.routes.values())
     want = ref.moe_gmm_backward(x.detach(), w.detach(), dy, r)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

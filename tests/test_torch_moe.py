@@ -234,6 +234,148 @@ def test_ragged_tiles_cover_each_segment_once(E, M, bm):
         assert (seen[:rows.sum()] == 1).all() and not seen[rows.sum():].any()
 
 
+# ``csrc/gmm_wgmma.cuh``'s ragged kernels (the all-to-all dispatch's
+# bf16 forward and backward on wgmma), mirrored: (E, M, D, F, rows,
+# starts) over M = 333 packed rows (no multiple of 128), D = 72 (a last
+# stage of 8) and F = 264 (two N tiles): abutting segments with rows of no
+# expert at the end, abutting segments filling M, segments with gaps,
+# starts in reverse expert order with gaps, empty experts and one-row
+# segments among them
+WGMMA_RAGGED = {
+    "abutting": (5, 333, 72, 264, [130, 0, 1, 129, 60], [0, 130, 130, 131,
+                                                          260]),
+    "filling": (4, 333, 72, 264, [200, 1, 0, 132], [0, 200, 201, 201]),
+    "gaps": (5, 333, 72, 264, [50, 1, 0, 90, 70], [0, 60, 70, 75, 200]),
+    "reversed": (5, 333, 72, 264, [40, 130, 1, 0, 100],
+                 [290, 150, 140, 130, 10]),
+}
+
+
+def _wgmma_tiles(rows, starts, M, bm):
+    """The (expert, first row within its segment) of each tile of the
+    ragged grid, in grid order: ``ragged_tile``'s prefix sums of
+    ceil(rows / bm) over the clamped segments."""
+    tiles = []
+    for e, (s0, n) in enumerate(zip(starts, rows)):
+        s0 = min(max(s0, 0), M)
+        tiles += [(e, m0) for m0 in range(0, min(max(n, 0), M - s0), bm)]
+    return tiles
+
+
+def _segment(rows, starts, e, M):
+    s0 = min(max(starts[e], 0), M)
+    return s0, min(max(rows[e], 0), M - s0)
+
+
+def _box(t, r0, n):
+    """Rows r0 .. r0 + n of t as a TMA box reads them: zeros past t's
+    rows."""
+    out = torch.zeros((n, t.shape[1]), dtype=t.dtype)
+    out[:max(0, min(n, t.shape[0] - r0))] = t[r0:r0 + n]
+    return out
+
+
+def _wgmma_rows(a, b, rows, starts, order, dense_store=False, bm=128,
+                bn=256, bk=64):
+    """Y = A b[e] on each expert's packed rows (the forward: A = x, b = w;
+    dx: A = dy, b = w^T), blocks run in ``order`` (a permutation of the
+    grid's (tile, N tile) blocks; on the card they run in no order): a
+    block's box of A starts at the segment's first row plus its tile's and
+    runs on past the segment's end (the next expert's rows, zeros past M),
+    D in stages of ``bk``, and its store stops at the segment's end, or
+    with ``dense_store`` writes zeros over its tile's rows past it (the
+    dense kernel's store)."""
+    M = a.shape[0]
+    F = b.shape[2]
+    y = torch.zeros((M, F), dtype=a.dtype)
+    blocks = [(t, n0) for t in _wgmma_tiles(rows, starts, M, bm)
+              for n0 in range(0, F, bn)]
+    for i in order(len(blocks)):
+        (e, m0), n0 = blocks[i]
+        s0, n = _segment(rows, starts, e, M)
+        box = _box(a, s0 + m0, bm)
+        acc = torch.zeros((bm, min(bn, F - n0)), dtype=a.dtype)
+        for k0 in range(0, a.shape[1], bk):
+            acc += box[:, k0:k0 + bk] @ b[e, k0:k0 + bk, n0:n0 + bn]
+        stop = n - m0                        # the segment's rows in the tile
+        if dense_store:
+            acc[stop:] = 0
+            stop = min(bm, M - s0 - m0)
+        y[s0 + m0:s0 + m0 + min(bm, stop), n0:n0 + bn] = acc[:stop]
+    return y
+
+
+def _wgmma_dw(x, dy, rows, starts, zero_tail=True, bk=64):
+    """dw[e] = x^T dy over expert e's rows: stages of ``bk`` rows from the
+    segment's first row, whose boxes of x and dy run past its end (zeros
+    past M); the last stage's rows past the end are zeroed in both (or not,
+    without ``zero_tail``); an empty expert runs no stage."""
+    M = x.shape[0]
+    dw = []
+    for e in range(len(rows)):
+        s0, n = _segment(rows, starts, e, M)
+        acc = torch.zeros((x.shape[1], dy.shape[1]), dtype=x.dtype)
+        for k0 in range(0, n, bk):
+            xs, ds = _box(x, s0 + k0, bk), _box(dy, s0 + k0, bk)
+            if zero_tail:
+                xs[n - k0:] = 0
+                ds[n - k0:] = 0
+            acc += xs.T @ ds
+        dw.append(acc)
+    return torch.stack(dw)
+
+
+ORDERS = {"grid": lambda n: range(n), "reversed": lambda n: range(n)[::-1],
+          "seeded": lambda n: np.random.default_rng(n).permutation(n)}
+
+
+def _integers(rng, *shape):
+    """float32 small integers: every product and sum below is exact, so
+    each order of the sums gives the same bits."""
+    return torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("kind", WGMMA_RAGGED)
+def test_ragged_wgmma_indexing_matches_the_plain_version(kind, order):
+    """The ragged wgmma forward, dx and dw, mirrored on float32 integers
+    in any block order, equal ``ref.moe_gmm`` / ``ref.moe_gmm_backward``
+    exactly, and leave the rows of no expert exact zeros."""
+    E, M, D, F, rows, starts = WGMMA_RAGGED[kind]
+    rng = np.random.default_rng(len(kind))
+    x, w, dy = _integers(rng, M, D), _integers(rng, E, D, F),         _integers(rng, M, F)
+    r, s = (torch.tensor(v, dtype=torch.int32) for v in (rows, starts))
+    y = _wgmma_rows(x, w, rows, starts, ORDERS[order])
+    assert torch.equal(y, ref.moe_gmm(x, w, r, s))
+    dx = _wgmma_rows(dy, w.transpose(1, 2), rows, starts, ORDERS[order])
+    dw = _wgmma_dw(x, dy, rows, starts)
+    want_dx, want_dw = ref.moe_gmm_backward(x, w, dy, r, s)
+    assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+    owned = ref._segments(r, s, M).any(0)
+    assert not y[~owned].any() and not dx[~owned].any()
+    assert not dw[r == 0].any()
+
+
+def test_ragged_wgmma_needs_its_own_store_and_zeroed_tail():
+    """The trap: with the dense kernel's store (zeros over the tile's rows
+    past the segment's end) a block clobbers the next expert's rows of
+    abutting segments when it runs after them; without zeroing the last
+    dw stage's rows past the segment's end, dw[e] sums the next expert's
+    rows."""
+    E, M, D, F, rows, starts = WGMMA_RAGGED["abutting"]
+    rng = np.random.default_rng(0)
+    x, w, dy = _integers(rng, M, D), _integers(rng, E, D, F),         _integers(rng, M, F)
+    r, s = (torch.tensor(v, dtype=torch.int32) for v in (rows, starts))
+    want = ref.moe_gmm(x, w, r, s)
+    assert torch.equal(_wgmma_rows(x, w, rows, starts, ORDERS["grid"],
+                                   dense_store=True), want)
+    assert not torch.equal(_wgmma_rows(x, w, rows, starts,
+                                       ORDERS["reversed"], dense_store=True),
+                           want)
+    assert not torch.equal(_wgmma_dw(x, dy, rows, starts, zero_tail=False),
+                           ref.moe_gmm_backward(x, w, dy, r, s)[1])
+
+
 def test_moe_gmm_wrapper_validates_inputs():
     from repro_torch.kernels import moe_gmm as k3
     x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 16))
