@@ -10,10 +10,11 @@ Phases, each printed as one JSON object on its own line:
               ``nvcc`` per source, in parallel.
   3. kernels  each kernel against its plain PyTorch version on the card, in
               float32 and bf16 at the main paths' shapes (tolerance 2e-3 /
-              2e-2), then times (CUDA events, median, L2 flushed before
-              every launch) beside the least time the card could take and
-              one PyTorch library call computing the same function, where
-              there is one.  K3 is also checked with ``rows`` (the live
+              2e-2), then times (each timed row's outputs again held at
+              their dtype's tolerance; CUDA events, median, L2 flushed
+              before every launch) beside the least time the card could
+              take and one PyTorch library call computing the same
+              function, where there is one.  K3 is also checked with ``rows`` (the live
               rows of each expert: none, some, all) and timed at the serve
               shape with the rows of a seeded top-8 draw for 4 tokens
               (the "serve, routed" rows, whose bound is the live experts'
@@ -89,6 +90,14 @@ Phases, each printed as one JSON object on its own line:
               checked on the route counters; each backward runs twice,
               ``torch.equal``; each row is beside its plain version and
               ``torch._grouped_mm`` with ``offs``, in float32 too.
+              Float32 K3 (``f32``) is also timed at the dense shapes the
+              float32 runs reach, beside float32 ``torch.bmm``: the MoE
+              prefill held in float32 (C = 80, gate/up and down), its
+              decode check (C = 4, all rows and routed) and the train
+              phase's float32 gradient check's backward (C = 40, run
+              twice, ``torch.equal``); these rows carry those runs'
+              launches.  In ``kernel_traces`` each launch of K3's
+              backward is labelled ``dx`` or ``dw``.
   4. train    four families at their published widths (TRAIN_CASES),
               each in turn: the float32 ``loss_fn`` gradients through the
               kernels and their backwards against ``attn_impl="plain"``
@@ -349,6 +358,13 @@ def _k2_bwd_kernel_ok(name: str, route: str) -> bool:
                + K2_BWD_KERNELS[route])
 
 
+def _k3_product(name: str) -> dict:
+    """{"product": "dx" / "dw"} for a launch of K3's backward (its first
+    template argument: A M-major is dw), else {}."""
+    m = re.search(r"gmm_bwd_\w+<(true|false)", name)
+    return {"product": "dw" if m.group(1) == "true" else "dx"} if m else {}
+
+
 def _k4_bwd_kernel_ok(name: str, route: str) -> bool:
     return any(p in name for p in ("rwkv_bwd_scan", "rwkv_bwd_du")
                + K4_BWD_KERNELS[route])
@@ -495,7 +511,11 @@ def main() -> int:
             # each kernel's entry function (mangled) and its registers
             "entries": {f: int(r) for f, r in re.findall(
                 r"Compiling entry function '(\w+)'.*?Used (\d+) registers",
-                log, re.S)}}
+                log, re.S)},
+            # the entries that spill, and their spill stores in bytes
+            "spills": {f: int(b) for f, b in re.findall(
+                r"Compiling entry function '(\w+)'.*?"
+                r"(\d+) bytes spill stores", log, re.S) if int(b)}}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": sorted(libs), "ptxas": ptxas})
 
@@ -961,7 +981,8 @@ def kernel_phase(torch, dev) -> list[dict]:
                 torch.cuda.synchronize()
             kernels = [{"kernel": e.key[:90],
                         "us_per_call": e.device_time_total / calls,
-                        "launches_per_call": e.count / calls}
+                        "launches_per_call": e.count / calls,
+                        **_k3_product(e.key)}
                        for e in prof.key_averages()
                        if e.device_time_total > 0]
             if kernels:
@@ -971,7 +992,8 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     def row(name, path, shape, ins, kernel, plain, library, work, replaces,
             scaled=False, plain_reps=15):
-        """One timed row; ``work``: the call's count (``kernels/cost.py``),
+        """One timed row, its outputs held to the plain version's at TOLS
+        of their dtype; ``work``: the call's count (``kernels/cost.py``),
         whose bound the row gives; ``scaled``: each output is held at the
         tolerance relative to its largest entry (gradients), not
         elementwise; ``plain_reps``: fewer launches for a plain version
@@ -980,9 +1002,10 @@ def kernel_phase(torch, dev) -> list[dict]:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         e = max(_err(g, w) for g, w in zip(got, want))
-        ok = (all(_scaled_err(g, w) <= TOLS["bfloat16"]
-                  for g, w in zip(got, want)) if scaled else
-              all(_within(g, w, TOLS["bfloat16"]) for g, w in zip(got, want)))
+        tol = TOLS[str(got[0].dtype).removeprefix("torch.")]
+        ok = (all(_scaled_err(g, w) <= tol for g, w in zip(got, want))
+              if scaled else
+              all(_within(g, w, tol) for g, w in zip(got, want)))
         need(ok, f"timed {name} {shape}: max err {e}")
         bound, bound_by = cost.bound_ms(*work)
         rows.append({
@@ -1271,6 +1294,63 @@ def kernel_phase(torch, dev) -> list[dict]:
         trace("moe_gmm_bwd", path, lambda: k3.backward(x, w, dy))
         del x, w, dy
 
+    # float32 K3 at the dense shapes the runs reach in float32 (``f32``:
+    # the loop of csrc/gmm_f32.cuh, the split-D tiles at 32 rows or fewer):
+    # the MoE prefill held in float32 (C = 80) and its decode check
+    # (C = 4, all rows and routed), and the train phase's float32
+    # gradient check (B=2, T=256: C = 40), its backward; each beside
+    # float32 ``torch.bmm``, the backward twice ``torch.equal``
+    moe = "qwen3-moe-235b-a22b"
+    f32 = torch.float32
+    for path, C, D, F_, bwd in (
+            (f"{moe} prefill float32", 80, 4096, 1536, False),
+            (f"{moe} prefill float32", 80, 1536, 4096, False),
+            (f"{moe} decode float32", 4, 4096, 1536, False),
+            (f"{moe} decode float32", 4, 1536, 4096, False),
+            (f"{moe} decode float32, routed", 4, 4096, 1536, False),
+            (f"{moe} decode float32, routed", 4, 1536, 4096, False),
+            (f"{moe} train float32", 40, 4096, 1536, True),
+            (f"{moe} train float32", 40, 1536, 4096, True)):
+        E = 128
+        x, w = k3_inputs(E, C, D, F_, f32)
+        r = k3_rows(E, C, "routed" if "routed" in path else None)
+        shape = {"E": E, "C": C, "D": D, "F": F_, "dtype": "float32",
+                 "route": "f32"}
+        if r is not None:
+            shape.update(rows="routed", live_experts=int((r > 0).sum()),
+                         live_rows=int(r.sum()))
+        ops.reset_launch_counts()
+        if not bwd:
+            row("moe_gmm", path, shape, (x, w, r), ops.moe_gmm, ref.moe_gmm,
+                lambda x, w, r: torch.bmm(x, w),
+                cost.moe_gmm(E, C, D, F_, f32,
+                             None if r is None else r.tolist()),
+                "src/repro/kernels/moe_gmm.py:42", plain_reps=3)
+            need(k3.routes == {"wgmma": 0, "tc": 0, "f32": k3.launches}
+                 and k3.launches > 0,
+                 f"moe_gmm {path} {D}: routes {k3.routes}, want f32")
+            if D == 4096 and r is None:
+                trace("moe_gmm", path, lambda: ops.moe_gmm(x, w))
+            del x, w
+            continue
+        dy = rand(E, C, F_)
+        twice = [k3.backward(x, w, dy) for _ in range(2)]
+        need(all(torch.equal(a, b) for a, b in zip(*twice)),
+             f"moe_gmm_bwd {path} {D}: two runs differ")
+        del twice
+        ops.reset_launch_counts()
+        row("moe_gmm_bwd", path, shape, (x, w, dy), k3.backward,
+            ref.moe_gmm_backward,
+            lambda x, w, dy: (torch.bmm(dy, w.transpose(1, 2)),
+                              torch.bmm(x.transpose(1, 2), dy)),
+            cost.moe_gmm_bwd(E, C, D, F_, f32), no_pallas + "moe.py:76",
+            scaled=True, plain_reps=3)
+        need(k3.bwd_routes == {"wgmma": 0, "tc": 0, "f32": k3.bwd_launches}
+             and k3.bwd_launches > 0,
+             f"moe_gmm_bwd {path} {D}: routes {k3.bwd_routes}, want f32")
+        trace("moe_gmm_bwd", path, lambda: k3.backward(x, w, dy))
+        del x, w, dy
+
     # ragged K3 (``starts``): first at the shape of ``mesh_moe``'s one-rank
     # all-to-all runs (E_loc 128, M 8,192: 1,024 tokens to their top 8 of
     # 128, none dropped), in bf16 and float32 (each dtype's prefill and
@@ -1418,11 +1498,12 @@ TRAIN_STEPS = 10
 # split, the fourth the dK/dV sum, bwd_dkdv_sum).
 CUDA_NAMES = {
     "flash_attention_bwd": ("bwd_dot", "bwd_dkdv", "bwd_dq"),
-    "moe_gmm_bwd": ("gmm_bwd_wgmma", "gmm_bwd_tc", "gmm_bwd_f32"),
+    "moe_gmm_bwd": ("gmm_bwd_wgmma", "gmm_bwd_tc", "gmm_bwd_ffma"),
     "rwkv_scan_bwd": ("rwkv_bwd_",),
     "rglru_scan_bwd": ("rglru_bwd_",),
     "flash_attention": ("flash_attention_tc", "flash_attention_kernel"),
-    "moe_gmm": ("moe_gmm_wgmma", "moe_gmm_tc", "moe_gmm_kernel"),
+    "moe_gmm": ("moe_gmm_wgmma", "moe_gmm_tc", "moe_gmm_ffma",
+                "moe_gmm_kernel"),
     "rwkv_scan": ("chunk_state", "state_scan", "chunk_out", "rwkv_decode"),
     "rglru_scan": ("rglru_scan_windows", "rglru_scan_steps"),
 }
@@ -1534,7 +1615,8 @@ def train_phase(torch, dev, case) -> dict:
     from a seeded generator: float32 ``loss_fn`` gradients through the
     kernels and their backwards against ``attn_impl="plain"``, then
     TRAIN_STEPS bf16 steps of ``TrainState``.  Returns the kernel launches
-    of the bf16 training run, keyed ``"<name> train"``."""
+    of the bf16 training run, keyed ``"<name> train"``, and of the float32
+    gradient check, ``"<name> train float32"``."""
     import contextlib
     import tempfile
 
@@ -1597,6 +1679,7 @@ def train_phase(torch, dev, case) -> dict:
           "plain_path_s": plain_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     expect(counts, par.get("launches", per_step), "float32 gradient")
+    counts32 = counts                 # the float32 gradient check's launches
     need(max(rels) <= 2e-3, f"{cfg.name} train gradients: largest leaf rel "
          f"L2 {max(rels)} > 2e-3")
     del params, batch, leaves, got, want, loss_k, loss_p
@@ -1738,7 +1821,8 @@ def train_phase(torch, dev, case) -> dict:
          f"{TRAIN_STEPS} steps, want {want_routes}")
     if not case.get("checkpoints"):
         del ts, batches, params
-        return {f"{cfg.name} train": total}
+        return {f"{cfg.name} train": total,
+                f"{cfg.name} train float32": counts32}
 
     # 3. epochs, the backup and checkpoints ---------------------------------
     need(ts.color == TRAIN_STEPS, f"color {ts.color} after {TRAIN_STEPS} "
@@ -1793,7 +1877,8 @@ def train_phase(torch, dev, case) -> dict:
           "restored_color": ts.color, "checkpoint": ckpt,
           "leaves": len(tree_leaves(state))})
     del ts, trained, state, batches, params
-    return {f"{cfg.name} train": total}
+    return {f"{cfg.name} train": total,
+            f"{cfg.name} train float32": counts32}
 
 
 # ---------------------------------------------------------------------------
@@ -1896,7 +1981,9 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
     """Run one model's phases in bf16, holding the kernel path to the plain
     path in ``held_in``; ``cut`` ({"n_layers": N, "why": ...}) reduces the
     depth.  Returns the kernel launches counted on each of its paths, keyed
-    ``"<name> prefill"`` / ``"<name> serve"``."""
+    ``"<name> prefill"`` / ``"<name> serve"``, and in float32 those of the
+    held prefill and decode check, ``"<name> prefill float32"`` /
+    ``"<name> decode float32"``."""
     import numpy as np
 
     from repro_torch import configs
@@ -1917,15 +2004,21 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
     tol = LOGIT_REL_TOL[held_in]
     bf16 = held_in == "bfloat16"
 
-    def held(fn):
+    held_counts = {}
+
+    def held(fn, what):
         """``fn()`` with the weights (and the caches it casts) in
-        ``held_in``; the weights are cast back to their own dtypes after."""
+        ``held_in``; the weights are cast back to their own dtypes after.
+        In float32 its kernel launches are kept as ``"<name> <what>
+        float32"`` (the plain path it compares with launches none)."""
         if bf16:
             return fn()
         _cast_tree(params, torch.float32)
+        ops.reset_launch_counts()
         try:
             return fn()
         finally:
+            held_counts[f"{cfg.name} {what} float32"] = ops.launch_counts()
             _cast_tree(params, init_params(cfg, device="meta"))
 
     def expect(counts, want, what):
@@ -1969,7 +2062,7 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
             _, lk = prefill(params, {"tokens": toks})
             _, lp = make_prefill(plain_cfg)(params, {"tokens": toks})
         return _rel(lk, lp)
-    rel = rel_bf16 if bf16 else held(prefill_pair)
+    rel = rel_bf16 if bf16 else held(prefill_pair, "prefill")
     emit({"phase": "prefill", "arch": cfg.name, "reduced": reduced,
           "params": n_params,
           "init_s": init_s, "B": toks.shape[0], "T": toks.shape[1],
@@ -2051,13 +2144,13 @@ def model_phases(torch, dev, arch, T, per_prefill, per_tick, held_in,
                             "rel_l2_vs_plain": _rel(lk, lp),
                             "max_abs_err": _err(lk, lp)})
         return out
-    decode_checks = held(decode_pairs)
+    decode_checks = held(decode_pairs, "decode")
     emit({"phase": "decode_check", "arch": cfg.name, "held_in": held_in,
           "checks": decode_checks, "tol": tol})
     need(all(c["rel_l2_vs_plain"] <= tol for c in decode_checks),
          f"{cfg.name} decode logits disagree with the plain path")
     return {f"{cfg.name} prefill": prefill_counts,
-            f"{cfg.name} serve": serve_counts}
+            f"{cfg.name} serve": serve_counts, **held_counts}
 
 
 # ---------------------------------------------------------------------------

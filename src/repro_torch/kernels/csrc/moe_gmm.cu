@@ -63,23 +63,31 @@
 // where mma.sync ran at about a fifth of the bf16 peak.  The dense bf16
 // forward stays on moe_gmm_tc.
 //
-// float32 (moe_gmm_kernel): CUDA cores, so the callers that hold the MoE
-// in float32 keep full float32 products (TF32 would carry about three
-// decimal digits).  One 256-thread block per (expert, tile of BM rows of
-// C, tile of 128 columns of F) walks D in stages of BK rows: it loads the
-// stage's w tile (BK x 128) and x tile (BM x BK) into registers, 8
-// elements per load (16-byte loads wherever aligned and inside the tensor;
-// element loads with zero fill at the ragged edges), stores them to shared
-// memory, and multiplies while the next stage's loads are in flight.  Each
-// thread owns TM rows by 8 columns.  For C <= 32 a block has BM = 4 * RS
-// rows and the 16 / RS thread groups that would otherwise share a row
-// split each stage's depth instead, their partial sums added through
-// shared memory at the end (C = 4: BM = 4, a 16-way split of D).  For
-// larger C, BM is 64, 80 or 96, whichever pads C least.
+// float32: CUDA cores, so the callers that hold the MoE in float32 keep
+// full float32 products (TF32 would carry about three decimal digits).
+// Every float32 call but the dense decode's runs the grouped float32 main
+// loop of gmm_f32.cuh (moe_gmm_ffma; its design note there), A = x
+// row-major (K-contiguous), B = w[e] D x F row-major, the block height
+// following the rows an expert; it replaces the register-staged 64- to
+// 96-row tiles, which reached a third of the float32 bound at the
+// all-to-all dispatch's shape.  Dense with 32 rows an expert or fewer
+// (decode, bound by the weights' bytes: 4 flops a weight byte at C = 4)
+// keeps the split-D tiles (moe_gmm_kernel), on which the H100 ran the
+// decode check's shapes 1.7x faster than on the loop, where two of a
+// 64-row tile's eight warps do all of its products (PERF.md): one
+// 256-thread block per (expert, tile of BM = 4 RS rows, 128 columns of
+// F) walks D in stages of 64 rows, 8 elements per register-staged load
+// (16-byte loads wherever aligned and inside the tensor; element loads
+// with zero fill at the ragged edges), and the 16 / RS thread groups that
+// would otherwise share a row split each stage's depth, their partial
+// sums added through shared memory at the end (C = 4: BM = 4, a 16-way
+// split of D), so the few rows still spread the weights' bytes over many
+// blocks.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gmm_f32.cuh"          // the float32 main loop
 #include "gmm_wgmma.cuh"        // Gemm, Ragged, the wgmma main loop
 #include "mma_sync.cuh"
 #include "ragged.cuh"
@@ -166,24 +174,29 @@ __device__ void zero_tile(T* y, long long yb, long long y_sc, int c0, int BM,
     y[yb + (long long)(c0 + i / nc) * y_sc + f0 + i % nc] = T(0.f);
 }
 
-template <int RS, int TM, int BK>
+// The split-D tiles (dense, up to 32 rows an expert): TM rows a thread,
+// stages of BK rows of D.
+constexpr int kSplitTM = 4, kSplitBK = 64;
+
+template <int RS>
 constexpr size_t smem_bytes() {
-  constexpr int KS = 16 / RS, BM = RS * TM;
-  constexpr size_t stage = (size_t)BK * kBN + (size_t)BK * (BM + 1);
-  constexpr size_t red = KS > 1 ? (size_t)KS * BM * kBN : 0;
+  constexpr int KS = 16 / RS, BM = RS * kSplitTM;
+  constexpr size_t stage =
+      (size_t)kSplitBK * kBN + (size_t)kSplitBK * (BM + 1);
+  constexpr size_t red = (size_t)KS * BM * kBN;
   return sizeof(float) * (stage > red ? stage : red);
 }
 
-// RS: thread groups across the rows of the tile; TM: rows per thread;
-// BK: depth of one stage.  BM = RS * TM rows per block; KS = 16 / RS groups
-// split each stage's depth.
-template <int RS, int TM, int BK, bool RAGGED>
+// RS: thread groups across the rows of the tile; BM = RS * kSplitTM rows
+// per block; KS = 16 / RS groups split each stage's depth.
+template <int RS>
 __global__ void __launch_bounds__(kThreads)
 moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               float* __restrict__ y, const int* __restrict__ rows,
-               const int* __restrict__ starts, int E, int C, int D, int F,
+               float* __restrict__ y, const int* __restrict__ rows, int E,
+               int C, int D, int F,
                long long x_se, long long x_sc, long long w_se, long long w_sd,
                long long y_se, long long y_sc) {
+  constexpr int TM = kSplitTM, BK = kSplitBK;
   constexpr int KS = 16 / RS;
   constexpr int BM = RS * TM;
   constexpr int XST = BM + 1;                 // x tile row stride (banks)
@@ -191,16 +204,14 @@ moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   constexpr int XCH = BM * KCH;               // x chunks per stage
   constexpr int XPT = (XCH + kThreads - 1) / kThreads;
   constexpr int WPT = BK * (kBN / kChunk) / kThreads;  // w chunks per thread
-  static_assert(WPT >= 1 && BK % KS == 0, "tile shape");
+  static_assert(KS > 1 && BK % KS == 0, "tile shape");
 
   extern __shared__ float smem[];
   float* ws = smem;                           // [BK][kBN]
   float* xs = ws + BK * kBN;                  // [BK][XST], k-major
 
   Place pl;
-  if (!place<RAGGED>(pl, rows, starts, E, C, BM, kBN, x_se, x_sc, y_se,
-                     y_sc))
-    return;
+  place<false>(pl, rows, nullptr, E, C, BM, kBN, x_se, x_sc, y_se, y_sc);
   const int c0 = pl.c0, f0 = pl.f0, cy = pl.cy;
   const int tid = threadIdx.x;
   const float* xe = x + pl.xo;
@@ -292,39 +303,25 @@ moe_gmm_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 
-  if constexpr (KS == 1) {
+  // KS groups hold partial sums over disjoint parts of D: add them up
+  __syncthreads();
+  float* red = smem;                          // [KS][BM][kBN]
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int row = c0 + rg * TM + i;
-      if (row >= cy) continue;
+  for (int i = 0; i < TM; ++i) {
+    float* r = red + ((ks * BM) + rg * TM + i) * kBN;
+    *reinterpret_cast<float4*>(r + 4 * cg) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(r + 64 + 4 * cg) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();
+  for (int o = tid; o < BM * kBN; o += kThreads) {
+    const int row = c0 + o / kBN, col = f0 + o % kBN;
+    float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = f0 + (c < 4 ? 4 * cg + c : 64 + 4 * cg + c - 4);
-        if (col < F)
-          y[yb + row * y_sc + col] = row < nv ? acc[i][c] : 0.f;
-      }
-    }
-  } else {
-    // KS groups hold partial sums over disjoint parts of D: add them up
-    __syncthreads();
-    float* red = smem;                        // [KS][BM][kBN]
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float* r = red + ((ks * BM) + rg * TM + i) * kBN;
-      *reinterpret_cast<float4*>(r + 4 * cg) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(r + 64 + 4 * cg) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
-    __syncthreads();
-    for (int o = tid; o < BM * kBN; o += kThreads) {
-      const int row = c0 + o / kBN, col = f0 + o % kBN;
-      float s = 0.f;
-#pragma unroll
-      for (int g = 0; g < KS; ++g) s += red[g * BM * kBN + o];
-      if (row < cy && col < F)
-        y[yb + row * y_sc + col] = row < nv ? s : 0.f;
-    }
+    for (int g = 0; g < KS; ++g) s += red[g * BM * kBN + o];
+    if (row < cy && col < F)
+      y[yb + row * y_sc + col] = row < nv ? s : 0.f;
   }
 }
 
@@ -341,45 +338,60 @@ struct Args {
   cudaStream_t s;
 };
 
-template <int RS, int TM, int BK, bool RAGGED>
-int launch_as(const Args& a) {
-  constexpr int BM = RS * TM;
-  constexpr size_t smem = smem_bytes<RS, TM, BK>();
+template <int RS>
+int launch_split(const Args& a) {
+  constexpr int BM = RS * kSplitTM;
+  constexpr size_t smem = smem_bytes<RS>();
   static unsigned done = 0;
-  cudaError_t err = smem_once(
-      (const void*)moe_gmm_kernel<RS, TM, BK, RAGGED>, smem, &done);
+  cudaError_t err = smem_once((const void*)moe_gmm_kernel<RS>, smem, &done);
   if (err != cudaSuccess) return (int)err;
   const long long* st = a.st;
-  moe_gmm_kernel<RS, TM, BK, RAGGED>
-      <<<grid_of(RAGGED, a.E, a.C, a.F, BM, kBN), kThreads, smem, a.s>>>(
-          static_cast<const float*>(a.x), static_cast<const float*>(a.w),
-          static_cast<float*>(a.y), a.rows, a.starts, a.E, a.C, a.D, a.F,
-          st[0], st[1], st[2], st[3], st[4], st[5]);
+  moe_gmm_kernel<RS><<<grid_of(false, a.E, a.C, a.F, BM, kBN), kThreads,
+                       smem, a.s>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+      static_cast<float*>(a.y), a.rows, a.E, a.C, a.D, a.F, st[0], st[1],
+      st[2], st[3], st[4], st[5]);
   return (int)cudaGetLastError();
 }
 
-template <int RS, int TM, int BK>
-int launch(const Args& a) {
-  return a.starts ? launch_as<RS, TM, BK, true>(a)
-                  : launch_as<RS, TM, BK, false>(a);
+// y[e] = x[e] w[e] on gmm_f32.cuh's main loop: A = x, K-contiguous.
+template <int BM, Ragged R>
+__global__ void __launch_bounds__(kFfThreads, kFfMinBlocks)
+moe_gmm_ffma(Gemm g) {
+  gmm_ffma<false, false, R, BM>(g);
 }
 
-// float32: the tile for R rows an expert (C, or ragged the mean
-// ceil(M / E)), see the design note.
-int dispatch_f32(const Args& a, int R) {
-  if (R <= 4) return launch<1, 4, 64>(a);
-  if (R <= 8) return launch<2, 4, 64>(a);
-  if (R <= 16) return launch<4, 4, 64>(a);
-  if (R <= 32) return launch<8, 4, 64>(a);
-  int best = 4;                              // rows per thread: BM = 16 TM
-  for (int tm = 5; tm <= 6; ++tm) {
-    const int pad = (R + 16 * tm - 1) / (16 * tm) * 16 * tm;
-    const int best_pad = (R + 16 * best - 1) / (16 * best) * 16 * best;
-    if (pad < best_pad) best = tm;
+template <int BM, Ragged R>
+int launch_ffma(const Gemm& g, cudaStream_t s) {
+  static unsigned done = 0;
+  return ffma_launch<BM, R>(moe_gmm_ffma<BM, R>, &done, g, s);
+}
+
+template <Ragged R>
+int dispatch_ffma(const Gemm& g, int rows_an_expert, cudaStream_t s) {
+  switch (ffma_bm(rows_an_expert, R != Ragged::kNo)) {
+    case 64: return launch_ffma<64, R>(g, s);
+    case 80: return launch_ffma<80, R>(g, s);
+    case 96: return launch_ffma<96, R>(g, s);
+    default: return launch_ffma<128, R>(g, s);
   }
-  if (best == 5) return launch<16, 5, 32>(a);
-  if (best == 6) return launch<16, 6, 32>(a);
-  return launch<16, 4, 32>(a);
+}
+
+// float32: R rows an expert (C, or ragged the mean ceil(M / E)); see the
+// design note.
+int dispatch_f32(const Args& a, int R) {
+  if (!a.starts) {
+    if (R <= 4) return launch_split<1>(a);
+    if (R <= 8) return launch_split<2>(a);
+    if (R <= 16) return launch_split<4>(a);
+    if (R <= 32) return launch_split<8>(a);
+  }
+  const long long* st = a.st;
+  const Gemm g{a.x, a.w, a.y, a.rows, a.starts, a.E, a.C, a.F, a.D,
+               a.rows != nullptr, false, st[0], st[1], st[2], st[3], st[4],
+               st[5]};
+  return a.starts ? dispatch_ffma<Ragged::kM>(g, R, a.s)
+                  : dispatch_ffma<Ragged::kNo>(g, R, a.s);
 }
 
 // ---------------------------------------------------------------------------

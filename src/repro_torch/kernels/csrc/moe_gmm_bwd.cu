@@ -55,14 +55,19 @@
 // stage's rows past its end are zeroed in shared memory (gmm_wgmma.cuh);
 // on mma.sync and in float32 the loads past its end are zero filled.
 //
-// float32 (gmm_bwd_f32): CUDA cores, as the forward's float32 kernel, so
-// float32 gradients keep full float32 products.  A 256-thread block owns a
-// 64 x 64 tile of Y, each thread 4 x 4, and walks K in stages of 16 loaded
-// element by element with zero fill.
+// float32 (gmm_bwd_ffma): CUDA cores, so float32 gradients keep full
+// float32 products: the grouped float32 main loop of gmm_f32.cuh (its
+// design note there), dx as <A K-contiguous, B K-contiguous> with the
+// block height following the rows an expert as the forward's, dw as <A
+// M-major, B N-major> in 128 x 128 tiles.  It replaces 64 x 64 tiles of
+// element loads without prefetch, which reached a fifth of the
+// float32 bound (and half of two float32 torch._grouped_mm) at the
+// all-to-all dispatch's shape.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gmm_f32.cuh"          // the float32 main loop
 #include "gmm_wgmma.cuh"        // Gemm, Ragged, Tile, the wgmma main loop
 #include "mma_sync.cuh"
 #include "ragged.cuh"
@@ -226,62 +231,32 @@ gmm_bwd_tc(Gemm g) {
 // ---------------------------------------------------------------------------
 //  float32 on CUDA cores
 // ---------------------------------------------------------------------------
-constexpr int kFT = 64;        // tile of Y: kFT x kFT
-constexpr int kFK = 16;        // depth of a stage
+// dx (A_KM false, B_NK true) or dw (A_KM true, B_NK false) on gmm_f32.cuh's
+// main loop.
+template <bool A_KM, bool B_NK, Ragged R, int BM>
+__global__ void __launch_bounds__(kFfThreads, kFfMinBlocks)
+gmm_bwd_ffma(Gemm g) {
+  gmm_ffma<A_KM, B_NK, R, BM>(g);
+}
 
+template <bool A_KM, bool B_NK, Ragged R, int BM>
+int launch_ffma(const Gemm& g, cudaStream_t s) {
+  static unsigned done = 0;
+  return ffma_launch<BM, R>(gmm_bwd_ffma<A_KM, B_NK, R, BM>, &done, g, s);
+}
+
+// dx's tile follows the rows an expert (R: C, or ragged the mean
+// ceil(M / E)); dw's M is D, in tiles of 128.
 template <bool A_KM, bool B_NK, Ragged R>
-__global__ void __launch_bounds__(256)
-gmm_bwd_f32(Gemm g) {
-  __shared__ __align__(16) float As[kFK][kFT];   // [k][m]
-  __shared__ __align__(16) float Bs[kFK][kFT];   // [k][n]
-  Tile tl;
-  if (!tile_of<R>(tl, g, kFT, kFT)) return;
-  const int m0 = tl.m0, n0 = tl.n0, M = tl.mrows;
-  const int mlim = tl.mlim, klim = tl.klim;
-  const float* a = static_cast<const float*>(g.a) + tl.ao;
-  const float* b = static_cast<const float*>(g.b) + tl.bo;
-  float* y = static_cast<float*>(g.y) + tl.yo;
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;     // rows 4 tm.., columns 4 tn..
-  float acc[4][4] = {};
-  if (m0 < mlim) {
-    for (int k0 = 0; k0 < klim; k0 += kFK) {
-#pragma unroll
-      for (int j = 0; j < kFK * kFT / 256; ++j) {
-        const int i = tid + j * 256;
-        const int kk = i / kFT, x = i % kFT;  // x: m or n in the tile
-        const int k = k0 + kk, m = m0 + x, n = n0 + x;
-        float av = 0.f, bv = 0.f;
-        if (k < klim && m < mlim)
-          av = A_KM ? a[(long long)k * g.lda + m] : a[(long long)m * g.lda + k];
-        if (k < klim && n < g.N)
-          bv = B_NK ? b[(long long)n * g.ldb + k] : b[(long long)k * g.ldb + n];
-        As[kk][x] = av;
-        Bs[kk][x] = bv;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kFK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[kk][4 * tm]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][4 * tn]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * tm + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + 4 * tn + j;
-      if (col < g.N) y[(long long)row * g.ldy + col] = row < mlim ? acc[i][j] : 0.f;
+int dispatch_ffma(const Gemm& g, int rows_an_expert, cudaStream_t s) {
+  if constexpr (A_KM) {
+    return launch_ffma<A_KM, B_NK, R, 128>(g, s);
+  } else {
+    switch (ffma_bm(rows_an_expert, R != Ragged::kNo)) {
+      case 64: return launch_ffma<A_KM, B_NK, R, 64>(g, s);
+      case 80: return launch_ffma<A_KM, B_NK, R, 80>(g, s);
+      case 96: return launch_ffma<A_KM, B_NK, R, 96>(g, s);
+      default: return launch_ffma<A_KM, B_NK, R, 128>(g, s);
     }
   }
 }
@@ -332,26 +307,28 @@ int launch_wgmma(const void* x, const void* w, const void* dy, const Gemm& gx,
 }
 
 template <bool A_KM, bool B_NK, Ragged R>
-int launch_as(int elem_bytes, const Gemm& g, cudaStream_t s) {
-  if (elem_bytes == 2) {
-    static unsigned done = 0;
-    cudaError_t err = smem_once((const void*)gmm_bwd_tc<A_KM, B_NK, R>,
-                                kSmemTc, &done);
-    if (err != cudaSuccess) return (int)err;
-    gmm_bwd_tc<A_KM, B_NK, R>
-        <<<grid_of<R>(g, kBM, kBN), kThreads, kSmemTc, s>>>(g);
-  } else {
-    gmm_bwd_f32<A_KM, B_NK, R><<<grid_of<R>(g, kFT, kFT), 256, 0, s>>>(g);
-  }
+int launch_as(int elem_bytes, const Gemm& g, int rows_an_expert,
+              cudaStream_t s) {
+  if (elem_bytes == 4)
+    return dispatch_ffma<A_KM, B_NK, R>(g, rows_an_expert, s);
+  static unsigned done = 0;
+  cudaError_t err = smem_once((const void*)gmm_bwd_tc<A_KM, B_NK, R>,
+                              kSmemTc, &done);
+  if (err != cudaSuccess) return (int)err;
+  gmm_bwd_tc<A_KM, B_NK, R>
+      <<<grid_of<R>(g, kBM, kBN), kThreads, kSmemTc, s>>>(g);
   return (int)cudaGetLastError();
 }
 
 // dx (A row-major) tiles the packed rows, dw (A M-major) sums over them.
 template <bool A_KM, bool B_NK>
-int launch(int elem_bytes, const Gemm& g, cudaStream_t s) {
+int launch(int elem_bytes, const Gemm& g, int rows_an_expert,
+           cudaStream_t s) {
   constexpr Ragged r = A_KM ? Ragged::kK : Ragged::kM;
-  return g.starts ? launch_as<A_KM, B_NK, r>(elem_bytes, g, s)
-                  : launch_as<A_KM, B_NK, Ragged::kNo>(elem_bytes, g, s);
+  return g.starts
+             ? launch_as<A_KM, B_NK, r>(elem_bytes, g, rows_an_expert, s)
+             : launch_as<A_KM, B_NK, Ragged::kNo>(elem_bytes, g,
+                                                  rows_an_expert, s);
 }
 
 }  // namespace
@@ -390,7 +367,8 @@ extern "C" int repro_moe_gmm_bwd(int elem_bytes, int wgmma, const void* x,
                                                      D, F, st, s)
               : launch_wgmma<Ragged::kNo, Ragged::kNo>(x, w, dy, gx, gw, E,
                                                        C, D, F, st, s);
-  const int err = launch<false, true>(elem_bytes, gx, s);
+  const int R = sp ? (C + E - 1) / E : C;      // rows an expert
+  const int err = launch<false, true>(elem_bytes, gx, R, s);
   if (err) return err;
-  return launch<true, false>(elem_bytes, gw, s);
+  return launch<true, false>(elem_bytes, gw, R, s);
 }

@@ -1053,6 +1053,98 @@ def test_cuda_moe_gmm_ragged_at_a_production_rank(cuda, D, F):
                       TOLS["bfloat16"])
 
 
+def _a2a_nodrop_rows(cuda, holes):
+    """(rows, starts) of the all-to-all dispatch at one rank with nothing
+    dropped: 1,024 seeded tokens to their top 8 of 128 experts, M = 8,192
+    packed rows sorted by expert; ``holes``: experts 5 and 77 emptied, so
+    that their rows belong to no expert."""
+    g = torch.Generator(cuda).manual_seed(4)
+    probs = torch.softmax(torch.randn((1024, 128), generator=g,
+                                      device=cuda), -1)
+    rows = torch.bincount(probs.topk(8).indices.reshape(-1), minlength=128)
+    starts = torch.cumsum(rows, 0) - rows
+    if holes:
+        rows[[5, 77]] = 0
+    return rows.to(torch.int32), starts.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("holes", [False, True])
+def test_cuda_moe_gmm_float32_at_the_a2a_shape(cuda, holes):
+    """The float32 route (``f32``, ``csrc/gmm_f32.cuh``) at the all-to-all
+    dispatch's shape, E 128, M 8,192, D 4096, F 1536, the seeded no-drop
+    routing (with two experts emptied, ``holes``): forward and backward
+    against ``ref.moe_gmm`` / ``ref.moe_gmm_backward`` at 2e-3 (the
+    gradients of their largest entry), the rows of no expert and an empty
+    expert's dw exact zeros, and the backward the same bits twice."""
+    from repro_torch.kernels import moe_gmm as k3
+    E, M, D, F = 128, 8192, 4096, 1536
+    rows, starts = _a2a_nodrop_rows(cuda, holes)
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn((M, D), generator=g, device=cuda)
+    w = torch.randn((E, D, F), generator=g, device=cuda)
+    dy = torch.randn((M, F), generator=g, device=cuda)
+    owned = ref._segments(rows, starts, M).any(0)
+    ops.reset_launch_counts()
+    y = ops.moe_gmm(x, w, rows, starts)
+    dx, dw = k3.backward(x, w, dy, rows, starts)
+    again = k3.backward(x, w, dy, rows, starts)
+    torch.cuda.synchronize()
+    assert k3.routes == {"wgmma": 0, "tc": 0, "f32": 1}
+    assert k3.bwd_routes == {"wgmma": 0, "tc": 0, "f32": 2}
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    assert bool(owned.all()) != holes
+    assert not y[~owned].any() and not dx[~owned].any()
+    assert not dw[rows == 0].any()
+    torch.testing.assert_close(y, ref.moe_gmm(x, w, rows, starts),
+                               rtol=TOLS["float32"], atol=TOLS["float32"])
+    _scaled_close((dx, dw), ref.moe_gmm_backward(x, w, dy, rows, starts),
+                  TOLS["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, "partial", "zero"])
+@pytest.mark.parametrize("C", [1, 4, 33, 80, 130])
+@pytest.mark.parametrize("D,F,pad", [(4100, 259, 1), (520, 264, 0)])
+def test_cuda_moe_gmm_float32_load_paths(cuda, D, F, pad, C, rows):
+    """The float32 route's loads: x read through an odd row stride (D + 1:
+    no row 16-byte aligned, four 4-byte copies a chunk) with F = 259 (w's
+    and dy's rows unaligned, a ragged last chunk) and D = 4100 (a last
+    stage of 4), or aligned rows (16-byte copies, zero filled tails); C
+    on the split-D tiles (1, 4), the loop's 64-row tiles (33) and its
+    80-row ones (80, 130); rows all, some (0, 1, C - 1, C, ...) or
+    none.  Forward and backward against the plain versions at 2e-3, the
+    rows past rows[e] and an expert without rows exact zeros, the
+    backward the same bits twice."""
+    from repro_torch.kernels import moe_gmm as k3
+    E = 6
+    g = torch.Generator(cuda).manual_seed(C)
+    x = torch.randn((E, C, D + pad), generator=g, device=cuda)[..., :D]
+    w = torch.randn((E, D, F), generator=g, device=cuda)
+    dy = torch.randn((E, C, F), generator=g, device=cuda)
+    n = {None: None, "zero": [0] * E,
+         "partial": [(0, 1, C - 1, C, C // 2, 3)[e] for e in range(E)]}[rows]
+    r = None if n is None else torch.tensor(n, dtype=torch.int32,
+                                            device=cuda)
+    ops.reset_launch_counts()
+    y = ops.moe_gmm(x, w, r)
+    dx, dw = k3.backward(x, w, dy, r)
+    again = k3.backward(x, w, dy, r)
+    torch.cuda.synchronize()
+    assert k3.routes == {"wgmma": 0, "tc": 0, "f32": 1}
+    assert k3.bwd_routes == {"wgmma": 0, "tc": 0, "f32": 2}
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    if r is not None:
+        live = (torch.arange(C, device=cuda)[None, :] < r[:, None])[..., None]
+        assert not y.masked_select(~live).any()
+        assert not dx.masked_select(~live).any()
+        assert not dw[r == 0].any()
+    torch.testing.assert_close(y, ref.moe_gmm(x, w, r), rtol=TOLS["float32"],
+                               atol=TOLS["float32"])
+    _scaled_close((dx, dw), ref.moe_gmm_backward(x, w, dy, r),
+                  TOLS["float32"])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "arctic_480b"])
 def test_cuda_moe_model_kernel_path_matches_plain_path(cuda, arch):

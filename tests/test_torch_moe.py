@@ -376,6 +376,228 @@ def test_ragged_wgmma_needs_its_own_store_and_zeroed_tail():
                            ref.moe_gmm_backward(x, w, dy, r, s)[1])
 
 
+# ``csrc/gmm_f32.cuh``'s float32 loop (the forward but the dense one at
+# 32 rows an expert or fewer, dx and dw), mirrored: its block heights
+# with their tiles (TM rows a thread, BN columns), stages of 16 along K,
+# and dw's 128 x 128 tiles
+FFMA_TILES = {64: (4, 128), 80: (5, 128), 96: (6, 128), 128: (8, 128)}
+FFMA_BK = 16
+
+
+def _ffma_bm(R, ragged):
+    """``ffma_bm``: 64 up to 64 rows an expert (the ragged mean raised by
+    a quarter), else the height of 128, 96, 80, 64 that pads R least, the
+    taller on a tie."""
+    R += R // 4 if ragged else 0
+    if R <= 64:
+        return 64
+    return min((128, 96, 80, 64), key=lambda bm: -(-R // bm) * bm - R)
+
+
+def _ffma_rows(a, b, rows, starts, order, bm):
+    """Y = A b[e] with Y's rows the expert's (the forward: A = x, b = w;
+    dx: A = dy, b = w^T), on the float32 loop's (bm, BN) tiles, blocks in
+    ``order``: dense (A (E, C, K), ``starts`` None) by (expert, M tile, N
+    tile), rows c >= rows[e] written as zeros; ragged (A (M, K) packed)
+    by ``ragged_tile``'s tiles, the store stopping at the segment's end.
+    A's rows past the live rows are zero filled; a warp whose rows all lie
+    past them skips its products; K runs in stages of ``FFMA_BK``."""
+    TM, bn = FFMA_TILES[bm]
+    warp_rows = 4 * TM                         # rows of a K-contiguous A
+    E, K, F = b.shape
+    ragged = starts is not None
+    if ragged:
+        M = a.shape[0]
+        y = torch.zeros((M, F), dtype=a.dtype)
+        tiles = _wgmma_tiles(rows, starts, M, bm)
+    else:
+        C = a.shape[1]
+        y = torch.full((E, C, F), float("nan"), dtype=a.dtype)
+        tiles = [(e, m0) for e in range(E) for m0 in range(0, C, bm)]
+    blocks = [(t, n0) for t in tiles for n0 in range(0, F, bn)]
+    for i in order(len(blocks)):
+        (e, m0), n0 = blocks[i]
+        if ragged:
+            s0, mlim = _segment(rows, starts, e, M)
+            mrows, src, dst = mlim, a[s0:], y[s0:]
+        else:
+            mrows, src, dst = C, a[e], y[e]
+            mlim = C if rows is None else min(max(rows[e], 0), C)
+        tile = torch.zeros((bm, K), dtype=a.dtype)
+        n_in = max(0, min(bm, mlim - m0))      # zero filled past mlim
+        tile[:n_in] = src[m0:m0 + n_in]
+        acc = torch.zeros((bm, min(bn, F - n0)), dtype=a.dtype)
+        if m0 < mlim:
+            for k0 in range(0, K, FFMA_BK):
+                acc += tile[:, k0:k0 + FFMA_BK] @ \
+                    b[e, k0:k0 + FFMA_BK, n0:n0 + bn]
+            for r0 in range(0, bm, warp_rows):  # warps past the live rows
+                if r0 >= mlim - m0:
+                    acc[r0:r0 + warp_rows] = 0
+        acc[max(0, mlim - m0):] = 0            # dense rows past rows[e]
+        stop = max(0, min(bm, mrows - m0))
+        dst[m0:m0 + stop, n0:n0 + bn] = acc[:stop]
+    return y
+
+
+def _ffma_dw(x, dy, rows, starts, order, by_segment=True):
+    """dw[e] = x^T dy on 128 x 128 tiles of (D, F), blocks in ``order``,
+    the sum over the expert's rows in stages of ``FFMA_BK``: dense over
+    c < rows[e]; ragged from the segment's first row, both operands zero
+    filled past its end (``by_segment``) or, the trap, only past M."""
+    ragged = starts is not None
+    E = len(rows) if rows is not None else x.shape[0]
+    D, F = x.shape[-1], dy.shape[-1]
+    dw = torch.full((E, D, F), float("nan"), dtype=x.dtype)
+    blocks = [(e, m0, n0) for e in range(E) for m0 in range(0, D, 128)
+              for n0 in range(0, F, 128)]
+    for i in order(len(blocks)):
+        e, m0, n0 = blocks[i]
+        if ragged:
+            M = x.shape[0]
+            s0, klim = _segment(rows, starts, e, M)
+            if not by_segment:
+                klim = -(-klim // FFMA_BK) * FFMA_BK    # stages run on
+            xs, ds = x[s0:], dy[s0:]
+        else:
+            C = x.shape[1]
+            klim = C if rows is None else min(max(rows[e], 0), C)
+            xs, ds = x[e], dy[e]
+        acc = torch.zeros((min(128, D - m0), min(128, F - n0)),
+                          dtype=x.dtype)
+        for k0 in range(0, klim, FFMA_BK):
+            kn = min(FFMA_BK, klim - k0)        # zero filled past klim
+            acc += xs[k0:k0 + kn, m0:m0 + 128].T @ ds[k0:k0 + kn,
+                                                      n0:n0 + 128]
+        dw[e, m0:m0 + 128, n0:n0 + 128] = acc
+    return dw
+
+
+@pytest.mark.parametrize("R,ragged,bm", [
+    (33, False, 64), (40, False, 64), (64, False, 64), (80, False, 80),
+    (96, False, 96), (130, False, 80), (200, False, 80), (640, False, 128),
+    (64, True, 80), (51, True, 64), (52, True, 80), (125, True, 80),
+    (8192, True, 128)])
+def test_ffma_tile_height_follows_the_rows_an_expert(R, ragged, bm):
+    """``ffma_bm``: the float32 loop's block height for R rows an expert
+    (the all-to-all dispatch's 64 a ragged expert: 80, so that most counts
+    around the mean, 46 to 92 at its seeded routing, fit one tile; the
+    training capacity of 640: 128)."""
+    assert _ffma_bm(R, ragged) == bm
+    TM, bn = FFMA_TILES[bm]
+    assert (bm // TM) * (bn // 8) == 256
+
+
+def _kin(x, c, G, pair):
+    """``kin<G, PAIR>``: the float offset of chunk c (4 floats along k) of
+    row x of a K-contiguous stage (rows of ``FFMA_BK`` = 16 floats), keyed
+    by the readers' group x / G: B's rows (``pair``, G = 4) two to a
+    128-byte line, its 8 chunks XORed with the key; A's rows (G = TM) one
+    each, the chunks XORed with the key's low bits."""
+    key = (x // G) & 7
+    if pair:
+        return (x >> 1) * 32 + 4 * ((((x & 1) << 2) | c) ^ key)
+    return x * FFMA_BK + 4 * (c ^ (key & 3))
+
+
+@pytest.mark.parametrize("BX,G,pair", [
+    (64, 4, False), (80, 5, False), (96, 6, False), (128, 8, False),
+    (128, 4, True), (256, 4, True)])
+def test_ffma_k_contiguous_stage_spreads_a_warps_reads(BX, G, pair):
+    """A K-contiguous stage (BX rows of 16 floats) is a permutation of its
+    floats in whole 16-byte chunks, and a warp's reads of one chunk fall
+    in as many 16-byte bank groups as 128 bytes allow: B's rows 4 t + j
+    of its 8 threads t along N (``pair``), A's rows t TM + i of its 4
+    threads t along M (G = TM)."""
+    offs = [_kin(x, c, G, pair) + f for x in range(BX) for c in range(4)
+            for f in range(4)]
+    assert sorted(offs) == list(range(BX * 16))
+
+    def groups(xs, c):
+        return len({_kin(x, c, G, pair) // 4 % 8 for x in xs})
+    for c in range(4):
+        if pair:
+            for t0 in range(0, BX // 4, 8):
+                for j in range(4):
+                    assert groups([4 * (t0 + t) + j for t in range(8)],
+                                  c) == 8
+        else:
+            for t0 in range(0, BX // G, 4):
+                for i in range(G):
+                    assert groups([(t0 + t) * G + i for t in range(4)],
+                                  c) == 4
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("kind", WGMMA_RAGGED)
+def test_ragged_ffma_tiling_matches_the_plain_version(kind, order):
+    """The float32 loop's ragged forward, dx and dw, mirrored on float32
+    integers in any block order and at every block height, equal
+    ``ref.moe_gmm`` / ``ref.moe_gmm_backward`` exactly and leave the rows
+    of no expert and an empty expert's dw exact zeros."""
+    E, M, D, F, rows, starts = WGMMA_RAGGED[kind]
+    rng = np.random.default_rng(len(kind) + 7)
+    x, w, dy = _integers(rng, M, D), _integers(rng, E, D, F), \
+        _integers(rng, M, F)
+    r, s = (torch.tensor(v, dtype=torch.int32) for v in (rows, starts))
+    want_y = ref.moe_gmm(x, w, r, s)
+    want_dx, want_dw = ref.moe_gmm_backward(x, w, dy, r, s)
+    owned = ref._segments(r, s, M).any(0)
+    for bm in FFMA_TILES:
+        y = _ffma_rows(x, w, rows, starts, ORDERS[order], bm)
+        dx = _ffma_rows(dy, w.transpose(1, 2), rows, starts, ORDERS[order],
+                        bm)
+        assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+        assert not y[~owned].any() and not dx[~owned].any()
+    dw = _ffma_dw(x, dy, rows, starts, ORDERS[order])
+    assert torch.equal(dw, want_dw) and not dw[r == 0].any()
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("kind", [None, "partial", "zero"])
+@pytest.mark.parametrize("C", [37, 80, 96, 130, 200])
+def test_dense_ffma_tiling_matches_the_plain_version(C, kind, order):
+    """The float32 loop's dense forward, dx and dw, mirrored on float32
+    integers in any block order, on the tile ``ffma_bm`` picks for C (a
+    ragged last stage of D = 72 and F = 264, two N tiles), with all rows,
+    some (0, 1, C - 1, C, ...) or none live: equal ``ref.moe_gmm`` /
+    ``ref.moe_gmm_backward`` exactly, every element written, the rows past
+    rows[e] and an expert without rows exact zeros."""
+    E, D, F = 4, 72, 264
+    rng = np.random.default_rng(C)
+    x, w, dy = _integers(rng, E, C, D), _integers(rng, E, D, F), \
+        _integers(rng, E, C, F)
+    n = {None: None, "zero": [0] * E,
+         "partial": [(0, 1, C - 1, C)[e] for e in range(E)]}[kind]
+    r = None if n is None else torch.tensor(n, dtype=torch.int32)
+    bm = _ffma_bm(C, False)
+    y = _ffma_rows(x, w, n, None, ORDERS[order], bm)
+    dx = _ffma_rows(dy, w.transpose(1, 2), n, None, ORDERS[order], bm)
+    dw = _ffma_dw(x, dy, n, None, ORDERS[order])
+    want_dx, want_dw = ref.moe_gmm_backward(x, w, dy, r)
+    assert torch.equal(y, ref.moe_gmm(x, w, r))
+    assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+    if r is not None:
+        live = torch.arange(C)[None, :] < r[:, None]
+        assert not y[~live].any() and not dx[~live].any()
+        assert not dw[r == 0].any()
+
+
+def test_ragged_ffma_dw_needs_zero_fill_by_the_segment():
+    """The trap: dw's stages run over the segment's rows from its first
+    one; zero filled only past M instead of past the segment's end, the
+    last stage sums the next expert's rows into dw[e]."""
+    E, M, D, F, rows, starts = WGMMA_RAGGED["abutting"]
+    rng = np.random.default_rng(1)
+    x, w, dy = _integers(rng, M, D), _integers(rng, E, D, F), \
+        _integers(rng, M, F)
+    r, s = (torch.tensor(v, dtype=torch.int32) for v in (rows, starts))
+    want = ref.moe_gmm_backward(x, w, dy, r, s)[1]
+    assert torch.equal(_ffma_dw(x, dy, rows, starts, ORDERS["grid"]), want)
+    assert not torch.equal(_ffma_dw(x, dy, rows, starts, ORDERS["grid"],
+                                    by_segment=False), want)
+
+
 def test_moe_gmm_wrapper_validates_inputs():
     from repro_torch.kernels import moe_gmm as k3
     x, w = torch.zeros((2, 4, 8)), torch.zeros((2, 8, 16))
