@@ -1,0 +1,13 @@
+"""The whole training step's share of one H100's bf16 peak: the frozen
+model FLOPs of the steps in the traced window over its wall time."""
+
+from perfbench import counts
+
+
+def read(window):
+    if not window.steps or window.window_s <= 0:
+        return None
+    tr = window.traffic
+    flops = counts.model_flops(window.model, tr["batch"], tr["seq_len"])
+    return 100.0 * flops * window.steps / window.window_s \
+        / counts.PEAK_BF16_FLOPS
