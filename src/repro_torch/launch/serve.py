@@ -17,8 +17,8 @@ config does not fit one 80 GB card whole: qwen3-moe-235b-a22b runs with
 a card.  On the card, attention, the experts' matmuls and the RWKV6 /
 RG-LRU recurrences run in the hand-written CUDA kernels.
 ``--profile N`` traces N ticks after the first with ``torch.profiler`` and
-prints the operators by device time and the device's busy share of the
-window.
+prints the operators by device time, the tick's spans (``admit``,
+``read_pages``, ``decode``) and the device's busy share of the window.
 
 Demonstrates the paper's coherence protocol in the serving path:
   * shared prompt prefixes are immutably-borrowed pages (refcounted);

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from . import transformer as T
 from .config import ModelConfig
 from .transformer import forward_hidden  # noqa: F401  (re-export)
@@ -44,18 +45,21 @@ def loss_fn(cfg: ModelConfig, params, batch, mesh=None):
         if Tlen % n:
             raise ValueError(f"chunked_ce={n} does not divide T={Tlen}")
         C = Tlen // n
-        head = T._head(cfg, params)
-        total = sum(checkpoint(_nll_sum, x[:, i * C:(i + 1) * C],
-                               labels[:, i * C:(i + 1) * C], head,
-                               use_reentrant=False) for i in range(n))
+        with telemetry.span("repro_torch/loss_head"):
+            head = T._head(cfg, params)
+            total = sum(checkpoint(_nll_sum, x[:, i * C:(i + 1) * C],
+                                   labels[:, i * C:(i + 1) * C], head,
+                                   use_reentrant=False) for i in range(n))
         return total / (B * Tlen) + 0.01 * aux
 
-    logits, aux = forward(cfg, params, batch, mesh=mesh)
-    if prefix:
-        logits = logits[:, -labels.shape[1]:, :]     # loss on text positions
-    logits = logits.float()
-    true = logits.gather(-1, labels[..., None])[..., 0]
-    nll = (torch.logsumexp(logits, dim=-1) - true).mean()
+    x, aux = forward_hidden(cfg, params, batch, mesh=mesh)
+    with telemetry.span("repro_torch/loss_head"):
+        logits = torch.einsum("btd,dv->btv", x, T._head(cfg, params))
+        if prefix:
+            logits = logits[:, -labels.shape[1]:, :]   # text positions only
+        logits = logits.float()
+        true = logits.gather(-1, labels[..., None])[..., 0]
+        nll = (torch.logsumexp(logits, dim=-1) - true).mean()
     return nll + 0.01 * aux
 
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.sharding import data_axes, mesh_coord, mesh_shape
 from repro_torch.kernels import ops, ref
@@ -102,28 +103,37 @@ def moe_block(cfg: ModelConfig, p, x, axis_name: str | None = None,
     With ``axis_name`` (a dim of ``mesh``, of ``axis_size`` ranks) ``p``
     holds this rank's slice of the experts, ``E / axis_size`` of them from
     ``e0 = rank * E_loc``: the tokens are routed over all E, the local
-    experts run, and the partial outputs are summed over the dim."""
-    B, T, D = x.shape
-    N = B * T
-    E_loc = cfg.n_experts // axis_size
-    xt = x.reshape(N, D)
-    aux, g, idx, keep = _route(cfg, p, xt)
-    if axis_name is not None:
-        e0 = mesh_coord(mesh, axis_name) * E_loc
-        g, idx, keep = (t[e0:e0 + E_loc] for t in (g, idx, keep))
-    C = idx.shape[1]
-    gate = torch.where(keep, g, 0.0).to(x.dtype)
-    rows = keep.sum(1, dtype=torch.int32)          # kept slots, on the device
-    xe = xt[idx]                                                 # (E, C, D)
-    gmm = ops.moe_gmm if L.use_kernels(cfg, x) else ref.moe_gmm
-    h = F.silu(gmm(xe, p["w_gate"], rows)) * gmm(xe, p["w_up"], rows)
-    out = gmm(h, p["w_down"], rows) * gate[..., None]            # (E, C, D)
-    out = torch.where(keep[..., None], out, 0.0)
-    y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
-    y.index_add_(0, idx.reshape(-1), out.reshape(E_loc * C, D).float())
-    if axis_name is not None:
-        y = coll.exit_sum(y, coll.groups(mesh, (axis_name,)))
-    return y.to(x.dtype).reshape(B, T, D), aux
+    experts run, and the partial outputs are summed over the dim.
+
+    While the profiler runs, the block is the span ``repro_torch/moe``
+    and, without ``axis_name``, counts its routed (token, expert) pairs,
+    N x top_k, in ``moe/routed_pairs`` and the pairs its experts kept
+    under their capacity in ``moe/kept_pairs`` (on the device)."""
+    with telemetry.span("repro_torch/moe"):
+        B, T, D = x.shape
+        N = B * T
+        E_loc = cfg.n_experts // axis_size
+        xt = x.reshape(N, D)
+        aux, g, idx, keep = _route(cfg, p, xt)
+        if axis_name is not None:
+            e0 = mesh_coord(mesh, axis_name) * E_loc
+            g, idx, keep = (t[e0:e0 + E_loc] for t in (g, idx, keep))
+        C = idx.shape[1]
+        gate = torch.where(keep, g, 0.0).to(x.dtype)
+        rows = keep.sum(1, dtype=torch.int32)      # kept slots, on the device
+        if axis_name is None:
+            telemetry.count("moe/routed_pairs", N * cfg.top_k)
+            telemetry.count("moe/kept_pairs", rows)
+        xe = xt[idx]                                             # (E, C, D)
+        gmm = ops.moe_gmm if L.use_kernels(cfg, x) else ref.moe_gmm
+        h = F.silu(gmm(xe, p["w_gate"], rows)) * gmm(xe, p["w_up"], rows)
+        out = gmm(h, p["w_down"], rows) * gate[..., None]        # (E, C, D)
+        out = torch.where(keep[..., None], out, 0.0)
+        y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+        y.index_add_(0, idx.reshape(-1), out.reshape(E_loc * C, D).float())
+        if axis_name is not None:
+            y = coll.exit_sum(y, coll.groups(mesh, (axis_name,)))
+        return y.to(x.dtype).reshape(B, T, D), aux
 
 
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")

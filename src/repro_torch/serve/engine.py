@@ -45,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.torchstate import OwnedState, StateCache
 from .kvcache import Page, PagedKVCache
 
@@ -247,14 +248,19 @@ class ServeEngine:
 
     # -- one decode tick across all active slots ------------------------------
     def step(self) -> int:
-        self._admit()
-        if not self.active:
-            return 0
-        if self.cluster is None:
-            return self._tick()
-        window = self._next_window()
-        with self.cluster.region(self.th, prefetch=window):
-            return self._tick()
+        """One tick: admission, then the decode of every active slot.
+        While the profiler runs it is the span ``repro_torch/tick``, with
+        ``admit``, ``read_pages`` and ``decode`` inside."""
+        with telemetry.span("repro_torch/tick"):
+            with telemetry.span("repro_torch/admit"):
+                self._admit()
+            if not self.active:
+                return 0
+            if self.cluster is None:
+                return self._tick()
+            window = self._next_window()
+            with self.cluster.region(self.th, prefetch=window):
+                return self._tick()
 
     def _read_pages(self):
         """Attention reads every page of every active sequence: one
@@ -273,18 +279,21 @@ class ServeEngine:
         params = (self.weight_cache.fetch(self.weights)   # color-keyed
                   if self.weights is not None else None)  # refresh
         if self.cluster is not None:
-            self._read_pages()
+            with telemetry.span("repro_torch/read_pages"):
+                self._read_pages()
         tokens = np.zeros((self.slots, 1), np.int32)
         for slot, req in self.active.items():
             seq = req.prompt + req.generated
             tokens[slot, 0] = seq[-1]
-        if self.device is not None:                 # real model on the device
-            nxt, self.cache = self._step(
-                params, self.cache, torch.from_numpy(tokens).to(self.device))
-            nxt = nxt.cpu().numpy()
-        else:                                       # stub step: numpy
-            nxt, self.cache = self._step(params, self.cache, tokens)
-            nxt = np.asarray(nxt)
+        with telemetry.span("repro_torch/decode"):
+            if self.device is not None:             # real model on the device
+                nxt, self.cache = self._step(
+                    params, self.cache,
+                    torch.from_numpy(tokens).to(self.device))
+                nxt = nxt.cpu().numpy()
+            else:                                   # stub step: numpy
+                nxt, self.cache = self._step(params, self.cache, tokens)
+                nxt = np.asarray(nxt)
         if self.cluster is not None:
             self.cluster.sim.compute(self.th, self.decode_cycles)
         finished = []

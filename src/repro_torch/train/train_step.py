@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.torchstate import (OwnedState, ReplicaSlot,
                                          tree_leaves, tree_map)
 from repro_torch.models import loss_fn
@@ -56,8 +57,11 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, mesh=None,
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss = loss_fn(cfg, _unflatten(params, leaves), batch, mesh=mesh)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with telemetry.span("repro_torch/forward"):
+                loss = loss_fn(cfg, _unflatten(params, leaves), batch,
+                               mesh=mesh)
+            with telemetry.span("repro_torch/backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return loss.detach(), grads
@@ -87,8 +91,9 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, mesh=None,
 
     def train_step(params, opt_state, batch):
         loss, grads = grads_of(params, _replicated(batch))
-        params, opt_state, metrics = apply_updates(opt, params, grads,
-                                                   opt_state)
+        with telemetry.span("repro_torch/optimizer"):
+            params, opt_state, metrics = apply_updates(opt, params, grads,
+                                                       opt_state)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
@@ -122,7 +127,7 @@ class TrainState:
         return self.state.color
 
     def step(self, batch):
-        with self.state.borrow_mut() as ref:
+        with telemetry.span(telemetry.STEP), self.state.borrow_mut() as ref:
             params, opt_state = ref.deref_mut()
             params, opt_state, metrics = self._step(params, opt_state, batch)
             ref.set((params, opt_state))
