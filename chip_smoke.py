@@ -1477,6 +1477,65 @@ def kernel_phase(torch, dev) -> list[dict]:
          f"rwkv_scan_bwd rwkv6-3b train ran {names}")
     del r, k, v, logw, u, states, do
 
+    # Adafactor's update of the MoE's stacked w_gate at 3 layers, (3, 128,
+    # 4096, 1536) bf16, 2.4 G parameters, at a step past the first (decay
+    # 0.6): its three kernel passes against the plain passes of ``ref``
+    # (the float32 PyTorch chain the optimizer ran before the kernels),
+    # the parameter held within one bf16 ulp and the state at 1e-5
+    shape = (3, 128, 4096, 1536)
+    p = torch.empty(shape, dtype=bf, device=dev)
+    g = torch.empty_like(p)
+    for i in range(shape[0]):              # no float32 copy of the leaf
+        p[i] = rand(*shape[1:], dtype=bf) * 0.02
+        g[i] = rand(*shape[1:], dtype=bf) * 1e-4
+    vr = torch.rand((*shape[:-1], 1), generator=gen, device=dev) * 1e-8
+    vc = torch.rand((*shape[:-2], 1, shape[-1]), generator=gen,
+                    device=dev) * 1e-8
+    step = [torch.tensor(x, device=dev) for x in (0.9, 0.6, 1e-3)]
+
+    def af_kernel(p, g, vr, vc):
+        st = ops.adafactor_stats(g)
+        ops.adafactor_update(p, g, vr, vc, st, *step, 1e-8, 0.01)
+
+    def af_plain(p, g, vr, vc):
+        ref.adafactor_update(p, g, vr, vc, ref.adafactor_stats(g), *step,
+                             1e-8, 0.01)
+
+    got, want = [p.clone(), vr.clone(), vc.clone()], [p.clone(), vr, vc]
+    af_kernel(got[0], g, got[1], got[2])
+    af_plain(want[0], g, want[1], want[2])
+    torch.cuda.synchronize()
+    # within one bf16 ulp, beside 1e-8 for the float32 rounding of an
+    # update that all but cancels its parameter
+    w = want[0].float()
+    diff = (got[0].float() - w).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    ulps = float((diff / (ulp + 1e-8)).max())         # at most 1
+    need(ulps <= 1
+         and all(_within(a, b, 1e-5) for a, b in zip(got[1:], want[1:])),
+         f"adafactor w_gate: {ulps} bf16 ulps, vr/vc err "
+         f"{[_err(a, b) for a, b in zip(got[1:], want[1:])]}")
+    del diff, ulp
+    bound, bound_by = cost.bound_ms(*cost.adafactor(384, 4096, 1536, bf,
+                                                    bf))
+    rows.append({
+        "name": "adafactor", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adafactor.cu",
+        "replaces": "none: the JAX package leaves its optimizer to XLA "
+                    "(src/repro/train/optimizer.py:116)",
+        "path": "qwen3-moe-235b-a22b train",
+        "shape": {"leaf": "layers.moe.w_gate", "shape": list(shape),
+                  "dtype": "bfloat16", "decay": 0.6,
+                  "max_err_in_ulps_beside_1e-8": ulps},
+        "launches": 0, "max_abs_err": _err(got[0], want[0]),
+        "ms": timed(lambda: af_kernel(p, g, vr, vc)),
+        "plain_ms": timed(lambda: af_plain(p, g, vr, vc), 5),
+        "library_ms": None, "library_note": NO_LIBRARY,
+        "bound_ms": bound, "bound_by": bound_by})
+    trace("adafactor", "qwen3-moe-235b-a22b train",
+          lambda: af_kernel(p, g, vr, vc))
+    del p, g, vr, vc, got, want, w
+
     emit({"phase": "kernel_traces", "traces": traces})
     emit({"phase": "kernels", "checks": checks,
           "times": [{k: r[k] for k in ("name", "path", "shape", "ms",
@@ -1506,6 +1565,7 @@ CUDA_NAMES = {
                 "moe_gmm_kernel"),
     "rwkv_scan": ("chunk_state", "state_scan", "chunk_out", "rwkv_decode"),
     "rglru_scan": ("rglru_scan_windows", "rglru_scan_steps"),
+    "adafactor": ("adafactor_",),
 }
 BWD_CUDA_PER_CALL = {"flash_attention_bwd": 3, "moe_gmm_bwd": 2,
                      "rwkv_scan_bwd": 4, "rglru_scan_bwd": 1}
@@ -1543,7 +1603,8 @@ TRAIN_CASES = [
     {"arch": "recurrentgemma_9b", "optimizer": "adafactor", "lr": 1e-4,
      "B": 8, "T": 1024, "one_batch": True, "chunked_ce": 4,
      "per_step": {"rglru_scan": 50, "rglru_scan_bwd": 26,
-                  "flash_attention": 24, "flash_attention_bwd": 12},
+                  "flash_attention": 24, "flash_attention_bwd": 12,
+                  "adafactor": 60},
      "bwd_routes": {"flash_attention_bwd": "wide"},
      # MQA: 128 dK/dV blocks, its 16 heads split in 8 (_dkdv_splits)
      "cuda_per_call": {"flash_attention_bwd": 4},
@@ -1561,7 +1622,7 @@ TRAIN_CASES = [
              "why": "one 80 GB card holds 3 of the 94 layers, as it "
                     "serves"},
      "per_step": {"moe_gmm": 18, "moe_gmm_bwd": 9, "flash_attention": 6,
-                  "flash_attention_bwd": 3},
+                  "flash_attention_bwd": 3, "adafactor": 15},
      "bwd_routes": {"flash_attention_bwd": "wgmma"},
      "parity": {"B": 2, "T": 256, "n_layers": 1,
                 "launches": {"moe_gmm": 6, "moe_gmm_bwd": 3,

@@ -18,6 +18,8 @@ kernel made faster keeps the same bound:
                            (one packed buffer, ``starts``), each row once
   K4 ``rwkv_scan``         the chunk form's multiply-adds, chunks of 64
   K5 ``rglru_scan``        one multiply-add an element (three backward)
+  ``adafactor``            16 operations a parameter; its gradient read in
+                           each of the update's three passes
 
 Where the work depends on the data (K1's ``lengths``, K3's ``rows``), a
 count takes the values; without them (``None``) it counts K1 at the full
@@ -240,6 +242,25 @@ def rglru_scan_bwd(B: int, T: int, D: int) -> Cost:
     return Cost(3 * n, 20 * n, "float32")
 
 
+def adafactor(Bt: int, R: int, C: int, g_dtype, p_dtype,
+              factored: bool = True) -> Cost:
+    """Adafactor's update of one leaf of Bt R C parameters (``factored``:
+    Bt matrices (R, C); else one vector of C): the gradient read three
+    times (the global norm between the first pass and the second needs
+    every leaf's first pass, and the update's RMS between the second and
+    the third), the parameter read and written once, the state read and
+    written once (vr (Bt, R) and vc (Bt, C) float32, or vr the leaf's
+    size); 16 float32 operations a parameter (g^2 and its row and column
+    sums; the scale, vr vc / den, + eps, rsqrt and product; the RMS's
+    square and sum; the clip, weight decay, learning rate and
+    difference)."""
+    n = Bt * R * C
+    state = Bt * (R + C) if factored else n
+    return Cost(16 * n, n * (3 * ELEM_BYTES[dtype_name(g_dtype)]
+                             + 2 * ELEM_BYTES[dtype_name(p_dtype)])
+                + 8 * state, "float32")
+
+
 # ---------------------------------------------------------------------------
 #  the recorder of fake calls
 # ---------------------------------------------------------------------------
@@ -296,7 +317,8 @@ COUNTS = {"decode_attention": decode_attention,
           "flash_attention_bwd": flash_attention_bwd,
           "moe_gmm": moe_gmm, "moe_gmm_bwd": moe_gmm_bwd,
           "rwkv_scan": rwkv_scan, "rwkv_scan_bwd": rwkv_scan_bwd,
-          "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
+          "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
+          "adafactor": adafactor}
 
 
 def record(name: str, upper_bound: bool = False, **args) -> None:

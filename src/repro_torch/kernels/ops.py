@@ -11,6 +11,7 @@ kernels in interpret mode.
 
 from __future__ import annotations
 
+from . import adafactor as _adafactor
 from . import cost
 from . import decode_attention as _decode
 from . import flash_attention as _flash
@@ -20,7 +21,8 @@ from . import rglru_scan as _rglru
 from . import rwkv_scan as _rwkv
 
 KERNELS = {"decode_attention": _decode, "flash_attention": _flash,
-           "moe_gmm": _gmm, "rwkv_scan": _rwkv, "rglru_scan": _rglru}
+           "moe_gmm": _gmm, "rwkv_scan": _rwkv, "rglru_scan": _rglru,
+           "adafactor": _adafactor}
 
 
 def _on(t) -> str:
@@ -78,12 +80,34 @@ def rglru_scan(a, b):
     return ref.rglru_scan(a, b)
 
 
+def adafactor_stats(g):
+    """Adafactor's first pass over gradient leaf ``g``: (sum of squares,
+    row sums of g^2 (..., R, 1), column sums (..., 1, C); None, None
+    under two dims), float32."""
+    if _on(g) == "cuda":
+        return _adafactor.stats(g)
+    return ref.adafactor_stats(g)
+
+
+def adafactor_update(p, g, vr, vc, stats, scale, decay, lr, eps: float,
+                     wd: float) -> None:
+    """Adafactor's update of leaf ``p`` and its state ``vr``/``vc`` in
+    place, from ``adafactor_stats``' ``stats`` and the step's 0-d
+    ``scale``, ``decay`` and ``lr``."""
+    if _on(p) == "cuda":
+        return _adafactor.update(p, g, vr, vc, stats, scale, decay, lr, eps,
+                                 wd)
+    return ref.adafactor_update(p, g, vr, vc, stats, scale, decay, lr, eps,
+                                wd)
+
+
 def launch_counts() -> dict[str, int]:
     """Wrapper calls per kernel since the last ``reset_launch_counts``;
     ``<name>_bwd`` counts the backward calls of each kernel in
     ``BACKWARDS`` apart from its forward (K2's backward is three CUDA
     launches, or four with its heads split; K3's two, K4's four, K5's
-    one).  ``bwd_routes`` of ``flash_attention``, ``moe_gmm`` and
+    one); ``adafactor`` counts leaves updated, three passes each.
+    ``bwd_routes`` of ``flash_attention``, ``moe_gmm`` and
     ``rwkv_scan`` split their backward calls by kernel, and
     ``moe_gmm.routes`` its forward launches."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}

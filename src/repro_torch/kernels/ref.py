@@ -234,3 +234,47 @@ def rglru_scan_backward(a, h, dh):
         g[:, t] = carry
     hp = torch.cat([torch.zeros_like(hf[:, :1]), hf[:, :-1]], dim=1)
     return g * hp, g
+
+
+def adafactor_stats(g):
+    """Adafactor's first pass over a gradient leaf, in float32: (its sum
+    of squares, the sums of g^2 over each row and each column of its two
+    trailing dims, kept as (..., R, 1) and (..., 1, C): the shapes of
+    ``vr`` and ``vc``).  A leaf under two dims has no row or column sums
+    (None)."""
+    g2 = torch.square(g.float())
+    sq = torch.sum(g2)
+    if g.dim() < 2:
+        return sq, None, None
+    return sq, g2.sum(dim=-1, keepdim=True), g2.sum(dim=-2, keepdim=True)
+
+
+def adafactor_update(p, g, vr, vc, stats, scale, decay, lr, eps: float,
+                     wd: float) -> None:
+    """Adafactor's second and third passes over leaf ``p``, in place, the
+    arithmetic of ``csrc/adafactor.cu`` in float32: with ``stats`` from
+    ``adafactor_stats`` (taken before the global norm gave ``scale``),
+    vr <- decay vr + (1 - decay)(scale^2 mean_C(g^2) + 1e-30) and vc
+    likewise over R (the reference's mean((scale g)^2 + 1e-30) with
+    scale^2 taken out), u = scale g rsqrt(vr vc / max(mean_R(vr), 1e-30) +
+    eps); a leaf under two dims keeps vr elementwise, vr <- decay vr + (1 -
+    decay)((scale g)^2 + 1e-30), u = scale g rsqrt(vr + eps).  Then p <- p
+    - lr (u / max(1, rms(u)) + wd p), rounded once to p's dtype."""
+    _, rows, cols = stats
+    gs = g.float() * scale
+    if rows is None:
+        vr.copy_(decay * vr + (1 - decay) * (gs * gs).add_(1e-30))
+        u = torch.rsqrt(vr + eps).mul_(gs)
+    else:
+        s2 = scale * scale
+        vr.copy_(decay * vr + (1 - decay) * (s2 * (rows / g.shape[-1])
+                                             + 1e-30))
+        vc.copy_(decay * vc + (1 - decay) * (s2 * (cols / g.shape[-2])
+                                             + 1e-30))
+        den = torch.clamp(vr.mean(dim=-2, keepdim=True), min=1e-30)
+        u = (vr * vc).div_(den).add_(eps).rsqrt_().mul_(gs)
+    del gs                              # two float32 copies of p at most
+    rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+    u.div_(torch.clamp(rms, min=1.0))
+    u.add_(p.to(torch.float32, copy=True).mul_(wd)).mul_(lr)
+    p.copy_(p.to(torch.float32, copy=True).sub_(u))

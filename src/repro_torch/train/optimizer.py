@@ -7,11 +7,15 @@ given tensors, under ``torch.no_grad()``, and returns the same trees: the
 in-place update is the port's counterpart of the reference's donated
 buffers.  The arithmetic is the reference's, step for step in float32, so
 one update from the same parameters and gradients gives the same numbers.
-The clipped float32 gradient and the update's temporaries exist for one
-leaf at a time, and Adafactor's are updated in place where that gives the
-same numbers, so the largest leaf's float32 copies bound the optimizer's
-peak memory (a full-size model's bf16 gradients are not copied to float32
-all at once).
+AdamW's clipped float32 gradient and its update's temporaries exist for one
+leaf at a time, so the largest leaf's float32 copies bound its peak memory
+(a full-size model's bf16 gradients are not copied to float32 all at once).
+Adafactor runs in three passes over each leaf (``kernels.ops.adafactor_*``:
+hand-written kernels on the card, ``kernels/ref.py`` on the CPU): the
+first over every gradient gives the global norm and the row and column
+sums of g^2, with the clip's scale^2 taken out of them; the second and
+third update the state and the parameter.  On the card no float32 copy of
+a leaf is made.
 The step count, the learning rate and the gradient norm stay 0-d tensors
 on the parameters' device, so a step never waits on the host.
 """
@@ -24,6 +28,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.torchstate import tree_leaves, tree_map
+from repro_torch.kernels import ops
 
 
 @dataclass(frozen=True)
@@ -126,43 +131,19 @@ def _adamw(cfg: OptConfig, p, g, m, v, lr, bc1, bc2) -> None:
     v.copy_(v2)
 
 
-def _adafactor(cfg: OptConfig, p, g, vr, vc, lr, decay) -> None:
-    """One Adafactor step of leaf ``p`` (the gradient ``g`` float32,
-    clipped); ``g`` is consumed.  In place where the numbers are the same
-    as the out-of-place formula's, so at most two float32 copies of the
-    leaf are alive at once."""
-    f = _factored_dims(p.shape)
-    g2 = (g * g).add_(1e-30)
-    if f is None:
-        v2 = decay * vr + (1 - decay) * g2
-        del g2
-        precond = torch.rsqrt(v2 + cfg.eps).mul_(g)
-        vr.copy_(v2)
-    else:
-        r, c = f
-        vr.copy_(decay * vr + (1 - decay) * g2.mean(dim=c, keepdim=True))
-        vc.copy_(decay * vc + (1 - decay) * g2.mean(dim=r, keepdim=True))
-        del g2
-        precond = (vr * vc).div_(torch.clamp(vr.mean(dim=r, keepdim=True),
-                                             min=1e-30))
-        precond.add_(cfg.eps).rsqrt_().mul_(g)
-    del g
-    # relative step clipping (RMS of update <= 1)
-    rms = torch.sqrt(torch.mean(torch.square(precond)) + 1e-30)
-    precond.div_(torch.clamp(rms, min=1.0))
-    # p - lr (precond + wd p), p in float32, one float32 copy at a time
-    precond.add_(p.to(torch.float32, copy=True).mul_(cfg.weight_decay))
-    precond.mul_(lr)
-    p.copy_(p.to(torch.float32, copy=True).sub_(precond))
-
-
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params, grads, state):
     """One optimizer step, written into ``params`` and ``state`` in place.
     Returns (params, state, {"grad_norm", "lr"}) with the same trees.  Each
     gradient is clipped by the global norm (``clip_by_global_norm``'s
-    arithmetic) as its leaf is updated."""
-    gnorm = global_norm(grads)
+    arithmetic) as its leaf is updated; Adafactor takes the norm from its
+    own first pass over the gradients."""
+    if cfg.name == "adamw":
+        gnorm = global_norm(grads)
+    else:
+        leaves = _zip(params, grads, state["vr"], state["vc"])
+        stats = [ops.adafactor_stats(g) for _, g, _, _ in leaves]
+        gnorm = torch.sqrt(sum(st[0] for st in stats))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     state["count"] += 1
@@ -175,6 +156,7 @@ def apply_updates(cfg: OptConfig, params, grads, state):
             _adamw(cfg, p, g.float() * scale, m, v, lr, bc1, bc2)
     else:
         decay = 1.0 - count ** -0.8
-        for p, g, vr, vc in _zip(params, grads, state["vr"], state["vc"]):
-            _adafactor(cfg, p, g.float() * scale, vr, vc, lr, decay)
+        for (p, g, vr, vc), st in zip(leaves, stats):
+            ops.adafactor_update(p, g, vr, vc, st, scale, decay, lr, cfg.eps,
+                                 cfg.weight_decay)
     return params, state, {"grad_norm": gnorm, "lr": lr}

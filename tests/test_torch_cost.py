@@ -232,6 +232,15 @@ def _k5():
     ops.rglru_scan(a, b).sum().backward()
 
 
+def _adafactor():
+    """One Adafactor step of a stacked bf16 matrix and a float32 vector."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    cfg = OptConfig(name="adafactor")
+    params = {"w": _fake(3, 16, 8, dtype=torch.bfloat16), "b": _fake(8)}
+    grads = {"w": _fake(3, 16, 8, dtype=torch.bfloat16), "b": _fake(8)}
+    apply_updates(cfg, params, grads, init_opt_state(cfg, params))
+
+
 BF16 = torch.bfloat16
 FAKE_CALLS = [
     ("decode_attention", _k1,
@@ -257,6 +266,10 @@ FAKE_CALLS = [
     ("rglru_scan", _k5,
      [("rglru_scan", cost.rglru_scan(2, 40, 96), False),
       ("rglru_scan_bwd", cost.rglru_scan_bwd(2, 40, 96), False)]),
+    ("adafactor", _adafactor,
+     [("adafactor", cost.adafactor(3, 16, 8, BF16, BF16), False),
+      ("adafactor", cost.adafactor(1, 1, 8, torch.float32, torch.float32,
+                                   factored=False), False)]),
 ]
 
 

@@ -1273,3 +1273,170 @@ def test_cuda_decode_dry_run_launches_equal_a_tick(cuda):
     real = {k: n for k, n in ops.launch_counts().items() if n}
     assert real == {k: v["launches"] for k, v in rec["kernels"].items()}
     assert real == {"decode_attention": 28}
+
+
+# Adafactor's leaves at the MoE's layouts, cut in size: (shape, parameter
+# dtype, gradient dtype); the last two take the one-element-a-thread path
+# (C % 8 != 0) and a float32 gradient of a bf16 leaf (microbatches)
+ADAFACTOR_LEAVES = {
+    "w_gate": ((3, 8, 512, 192), "bfloat16", "bfloat16"),
+    "w_down": ((3, 8, 192, 512), "bfloat16", "bfloat16"),
+    "wq": ((3, 512, 64, 128), "bfloat16", "bfloat16"),
+    "wk": ((3, 512, 4, 128), "bfloat16", "bfloat16"),
+    "wo": ((3, 64, 128, 512), "bfloat16", "bfloat16"),
+    "router": ((3, 512, 128), "float32", "float32"),
+    "norm": ((3, 512), "bfloat16", "bfloat16"),
+    "final_norm": ((512,), "bfloat16", "bfloat16"),
+    "embed": ((5000, 512), "bfloat16", "bfloat16"),
+    "lm_head": ((512, 5000), "bfloat16", "bfloat16"),
+    "odd": ((3, 37, 101), "bfloat16", "bfloat16"),
+    "f32_grad": ((4, 96, 200), "bfloat16", "float32"),
+}
+
+
+def _within_ulp(got, want):
+    """bf16: at most one unit in the last place apart, beside 1e-8 for
+    the float32 rounding of an update that all but cancels its parameter
+    (where a bf16 ulp is smaller than that rounding); float32: 1e-5."""
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        return
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    over = (got.float() - w).abs() - ulp - 1e-8
+    assert not bool((over > 0).any()), float(over.max())
+
+
+def _adafactor_leaf(cuda, shape, dtype):
+    from repro_torch.kernels.adafactor import _state_shapes
+    g = torch.Generator(cuda).manual_seed(0)
+    p = (torch.randn(shape, generator=g, device=cuda) * 0.05) \
+        .to(getattr(torch, dtype))
+    vr_shape, vc_shape = _state_shapes(shape)
+    return p, torch.zeros(vr_shape, device=cuda), \
+        torch.zeros(vc_shape, device=cuda), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ADAFACTOR_LEAVES))
+def test_cuda_adafactor_matches_plain(cuda, kind):
+    """Two steps of one leaf (decay 0, then 0.6) through the three kernel
+    passes against ``ref.adafactor_*`` on the same inputs, scale, decay
+    and learning rate: the sum of squares, vr and vc at rtol 1e-5, the
+    parameters within one bf16 ulp (float32: 1e-5).  Each step starts both
+    from the plain side's parameters: two roundings apart may add up to
+    two ulps."""
+    shape, dtype, gdtype = ADAFACTOR_LEAVES[kind]
+    p, vr, vc, gen = _adafactor_leaf(cuda, shape, dtype)
+    mine = [p.clone(), vr.clone(), vc.clone()]
+    before = p.clone()
+    for step, (decay, scale) in enumerate(((0.0, 0.7), (0.6, 1.0))):
+        mine[0].copy_(p)
+        g = (torch.randn(shape, generator=gen, device=cuda)
+             * (1 + 3 * torch.rand(shape[-1:], generator=gen, device=cuda))
+             ).to(getattr(torch, gdtype))
+        args = [torch.tensor(x, device=cuda) for x in (scale, decay, 1e-3)]
+        st = ops.adafactor_stats(g)
+        ops.adafactor_update(*mine[:1], g, *mine[1:], st, *args, 1e-8, 0.01)
+        want = ref.adafactor_stats(g)
+        ref.adafactor_update(p, g, vr, vc, want, *args, 1e-8, 0.01)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(st[0], want[0], rtol=1e-5, atol=0)
+        for got, exp in zip(st[1:], want[1:]):
+            if exp is not None:
+                torch.testing.assert_close(got, exp, rtol=1e-5, atol=0)
+        torch.testing.assert_close(mine[1], vr, rtol=1e-5, atol=1e-30)
+        torch.testing.assert_close(mine[2], vc, rtol=1e-5, atol=1e-30)
+        _within_ulp(mine[0], p)
+        assert not torch.equal(mine[0], before), f"step {step}: p unchanged"
+        before = p.clone()
+
+
+@pytest.mark.cuda
+def test_cuda_adafactor_full_size_expert_leaf(cuda):
+    """The stacked ``w_gate`` of qwen3-moe-235b-a22b at 3 layers, (3, 128,
+    4096, 1536) bf16: 2,415,919,104 elements, above 2^31, so any 32-bit
+    offset shows.  One ``apply_updates`` step through the kernels against
+    the plain passes on the same leaf: grad norm, vr and vc at 1e-5, the
+    parameter within one bf16 ulp; the update allocates under 5% of the
+    leaf's float32 size beyond its inputs."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    shape = (3, 128, 4096, 1536)
+    cfg = OptConfig(name="adafactor", lr=1e-3, warmup=1)
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    g = torch.empty_like(p)
+    for i in range(shape[0]):                  # no float32 copy of the leaf
+        p[i] = torch.randn(shape[1:], generator=gen, device=cuda) * 0.02
+        g[i] = torch.randn(shape[1:], generator=gen, device=cuda) * 1e-4
+    p0 = p.clone()
+    state = init_opt_state(cfg, {"w": p})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    _, _, m = apply_updates(cfg, {"w": p}, {"w": g}, state)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < 0.05 * 4 * p.numel(), extra
+    assert ops.launch_counts()["adafactor"] == 1
+    # the plain passes on the same inputs, at the step's scale and lr
+    want = ref.adafactor_stats(g)
+    gnorm = torch.sqrt(want[0])
+    torch.testing.assert_close(m["grad_norm"], gnorm, rtol=1e-5, atol=0)
+    scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+    vr, vc = torch.zeros_like(state["vr"]["w"]), torch.zeros_like(
+        state["vc"]["w"])
+    ref.adafactor_update(p0, g, vr, vc, want, scale,
+                         torch.zeros((), device=cuda), m["lr"], cfg.eps,
+                         cfg.weight_decay)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(state["vr"]["w"], vr, rtol=1e-5, atol=1e-30)
+    torch.testing.assert_close(state["vc"]["w"], vc, rtol=1e-5, atol=1e-30)
+    for i in range(shape[0]):
+        _within_ulp(p[i], p0[i])
+
+
+def _adafactor_tree(cuda):
+    """A small tree of the MoE's leaf kinds, bf16 but the router."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    shapes = {"embed": ((600, 64), torch.bfloat16),
+              "norm": ((64,), torch.bfloat16),
+              "wq": ((2, 64, 4, 32), torch.bfloat16),
+              "router": ((2, 64, 8), torch.float32),
+              "w_gate": ((2, 8, 64, 48), torch.bfloat16)}
+    params = {k: (torch.randn(s, generator=gen, device=cuda) * 0.05).to(d)
+              for k, (s, d) in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen, device=cuda).to(d)
+             for k, (s, d) in shapes.items()}
+    return params, grads
+
+
+@pytest.mark.cuda
+def test_cuda_adafactor_step_makes_no_host_sync_and_counts_leaves(cuda):
+    """One ``apply_updates`` step of a small tree under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    host; ``launch_counts()["adafactor"]`` is the number of leaves; the
+    parameters are the plain passes' on the CPU within one bf16 ulp."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    cfg = OptConfig(name="adafactor", lr=1e-3, warmup=1)
+    params, grads = _adafactor_tree(cuda)
+    warm = {k: v.clone() for k, v in params.items()}
+    apply_updates(cfg, warm, grads, init_opt_state(cfg, warm))  # the build
+    plain = {k: v.cpu() for k, v in params.items()}
+    state, pstate = init_opt_state(cfg, params), init_opt_state(cfg, plain)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        apply_updates(cfg, params, grads, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.launch_counts()["adafactor"] == len(params)
+    apply_updates(cfg, plain, {k: v.cpu() for k, v in grads.items()},
+                  pstate)
+    torch.cuda.synchronize()
+    for k in params:
+        _within_ulp(params[k].cpu(), plain[k])
+        torch.testing.assert_close(state["vr"][k].cpu(), pstate["vr"][k],
+                                   rtol=1e-5, atol=1e-30)

@@ -84,6 +84,55 @@ def test_updates_match_jax(name, moment_dtype):
                                        rtol=RTOL)
 
 
+# Adafactor's leaf kinds: (shape, dtype); the layouts of the MoE's leaves
+ADAFACTOR_LEAVES = {
+    "vector": ((40,), "bfloat16"),                  # unfactored: vr whole
+    "tall": ((48, 8), "bfloat16"),                  # R > C
+    "wide": ((6, 40), "bfloat16"),                  # C > R
+    "stacked4d": ((3, 4, 16, 24), "bfloat16"),      # (layers, experts, R, C)
+    "float32": ((3, 16, 8), "float32"),             # the router's dtype
+}
+
+
+@pytest.mark.parametrize("kind", list(ADAFACTOR_LEAVES))
+def test_adafactor_leaf_kinds_match_jax(kind):
+    """Three Adafactor updates of one leaf of each kind beside a float32
+    matrix (the second step above the clipping norm) through the plain
+    version of the card's three passes (``kernels/ref.py``: scale^2 taken
+    out of the row and column means) give the reference's gradient norm at
+    4e-6 and state at 1e-5 (float32 sums of a leaf of a thousand squares
+    in two orders differ by about 1e-6, and vr and vc carry scale^2), and
+    its parameters within one ulp of their dtype (bf16's 2^-8 relative,
+    float32's 1e-6)."""
+    shape, dtype = ADAFACTOR_LEAVES[kind]
+    kw = dict(name="adafactor", lr=1e-2, warmup=2, decay_steps=5)
+    jcfg, cfg = jopt.OptConfig(**kw), OptConfig(**kw)
+    rng = np.random.default_rng(3)
+
+    def tree():
+        return {"w": rng.standard_normal(shape) * 0.1,
+                "m": rng.standard_normal((10, 12))}
+
+    def both(t):
+        jt, tt = _both(t)
+        jt["w"] = jt["w"].astype(getattr(jnp, dtype))
+        tt["w"] = tt["w"].to(getattr(torch, dtype))
+        return jt, tt
+
+    jp, p = both(tree())
+    js, s = jopt.init_opt_state(jcfg, jp), init_opt_state(cfg, p)
+    ptol = 2.0 ** -8 if dtype == "bfloat16" else RTOL
+    for gscale in (0.1, 30.0, 0.5):
+        jg, g = both(jax.tree.map(lambda a: a * gscale, tree()))
+        jp, js, jm = jopt.apply_updates(jcfg, jp, jg, js)
+        m = apply_updates(cfg, p, g, s)[2]
+        assert p["w"].dtype == getattr(torch, dtype)
+        _assert_tree_close(p, jp, rtol=ptol)
+        _assert_tree_close(s, js, rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=4e-6)
+
+
 def test_schedule_matches_jax():
     kw = dict(lr=3e-3, warmup=10, decay_steps=100, min_lr_frac=0.1)
     jcfg, cfg = jopt.OptConfig(**kw), OptConfig(**kw)
