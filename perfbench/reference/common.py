@@ -16,6 +16,18 @@ from torch.utils.checkpoint import checkpoint
 NEG_INF = -1e30
 
 
+def lm_leaf_shapes(m: dict) -> dict:
+    """{path: one layer's shape} of the leaves every language model here
+    has: the embedding, the final norm, the untied head, a layer's two
+    norms."""
+    d, V = m["d_model"], m["vocab"]
+    out = {"embed": [V, d], "final_norm": [d]}
+    if not m["tie_embeddings"]:
+        out["lm_head"] = [d, V]
+    out["layers.norm1"] = out["layers.norm2"] = [d]
+    return out
+
+
 @contextlib.contextmanager
 def float32_matmuls():
     """TF32 off for matrix products and convolutions inside the block."""

@@ -13,7 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import causal_attention, mean_nll, mm, rms_norm, rope
+from perfbench import counts, weights
+from .common import (causal_attention, lm_leaf_shapes, mean_nll, mm,
+                     rms_norm, rope)
 
 
 def capacity(cfg: dict, n_tokens: int) -> int:
@@ -87,8 +89,7 @@ def loss(cfg: dict, prec: str, params: dict, tokens, labels):
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), device=x.device)
     for j in range(cfg["n_layers"]):
-        p = {path[len("layers."):]: ts[j] for path, ts in params.items()
-             if path.startswith("layers.")}
+        p = weights.layer_params(params, "layers", j)
         x, a = checkpoint(layer, cfg, prec, p, x, positions,
                           use_reentrant=False)
         aux = aux + a
@@ -97,4 +98,29 @@ def loss(cfg: dict, prec: str, params: dict, tokens, labels):
     out = mean_nll(prec, x, head, labels)
     if cfg.get("n_experts"):
         out = out + cfg["aux_coef"] * aux
+    return out
+
+
+def model_flops(model: dict, B: int, T: int) -> int:
+    """A training step's model FLOPs: the frozen count of ``counts``."""
+    return counts.model_flops(model, B, T)
+
+
+def leaf_shapes(m: dict) -> dict:
+    """{path: one layer's shape} of the parameter tree of ``m``."""
+    out = lm_leaf_shapes(m)
+    d, H, Hkv, hd = m["d_model"], m["n_heads"], m["n_kv_heads"], m["head_dim"]
+    out.update({"layers.attn.wq": [d, H, hd], "layers.attn.wk": [d, Hkv, hd],
+                "layers.attn.wv": [d, Hkv, hd], "layers.attn.wo": [H, hd, d],
+                "layers.attn.q_norm": [hd], "layers.attn.k_norm": [hd]})
+    if m.get("n_experts"):
+        E, f = m["n_experts"], m["moe_d_ff"]
+        out.update({"layers.moe.router": [d, E],
+                    "layers.moe.w_gate": [E, d, f],
+                    "layers.moe.w_up": [E, d, f],
+                    "layers.moe.w_down": [E, f, d]})
+    else:
+        f = m["d_ff"]
+        out.update({"layers.mlp.w_gate": [d, f], "layers.mlp.w_up": [d, f],
+                    "layers.mlp.w_down": [f, d]})
     return out

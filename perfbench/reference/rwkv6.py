@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import mean_nll, mm, rms_norm
+from perfbench import counts, weights
+from .common import lm_leaf_shapes, mean_nll, mm, rms_norm
 
 CHUNK = 64
 
@@ -113,10 +114,28 @@ def loss(cfg: dict, prec: str, params: dict, tokens, labels):
     layer]}."""
     x = params["embed"][0][tokens.long()]
     for j in range(cfg["n_layers"]):
-        p = {path[len("layers."):]: ts[j] for path, ts in params.items()
-             if path.startswith("layers.")}
+        p = weights.layer_params(params, "layers", j)
         x = checkpoint(layer, cfg, prec, p, x, use_reentrant=False)
     x = rms_norm(x, params["final_norm"][0], cfg["norm_eps"])
     head = params["embed"][0].T if cfg["tie_embeddings"] \
         else params["lm_head"][0]
     return mean_nll(prec, x, head, labels)
+
+
+def model_flops(model: dict, B: int, T: int) -> int:
+    """A training step's model FLOPs: the frozen count of ``counts``."""
+    return counts.model_flops(model, B, T)
+
+
+def leaf_shapes(m: dict) -> dict:
+    """{path: one layer's shape} of the parameter tree of ``m``."""
+    out = lm_leaf_shapes(m)
+    d, M, r, f = m["d_model"], m["rwkv_head_dim"], m["lora_r"], m["d_ff"]
+    out.update({"layers.mu": [5, d], "layers.w0": [d],
+                "layers.w_lora_a": [d, r], "layers.w_lora_b": [r, d],
+                "layers.u": [d // M, M], "layers.ln_x": [d],
+                "layers.mu_c": [2, d], "layers.ck": [d, f],
+                "layers.cv": [f, d]})
+    for k in ("wr", "wk", "wv", "wg", "wo", "cr"):
+        out[f"layers.{k}"] = [d, d]
+    return out

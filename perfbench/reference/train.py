@@ -1,24 +1,43 @@
 """The reference's first training steps and the readings ``correct``
 compares: each step's loss, each leaf's gradient at the first step as the
-optimizer gets it (clipped), and each leaf's change over the steps."""
+optimizer gets it (clipped), and each leaf's change over the steps.
+
+A configuration's ``reference`` names its model's module,
+``reference/<name>.py``, found by name: ``loss(cfg, prec, params, tokens,
+labels)`` and ``model_flops(model, B, T)`` (the step's model FLOPs that
+``metrics/train_mfu.py`` reads)."""
 
 from __future__ import annotations
 
-import importlib
+import importlib.util
 import math
+from pathlib import Path
 
 import torch
 
-from perfbench import weights
+from perfbench import spec, weights
 from . import optim
 from .common import float32_matmuls
 
-MODELS = {"qwen3": "perfbench.reference.qwen3",
-          "rwkv6": "perfbench.reference.rwkv6"}
+HERE = Path(__file__).resolve().parent
+
+
+def module(name: str):
+    """The reference module ``reference/<name>.py``."""
+    path = HERE / f"{name}.py"
+    spec.check_name(name, f"reference (file {path})")
+    if not path.is_file():
+        raise FileNotFoundError(f"no reference module {path}")
+    mod_spec = importlib.util.spec_from_file_location(
+        f"{__package__}.{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
 
 
 def model(config: dict):
-    return importlib.import_module(MODELS[config["reference"]])
+    """The module of the configuration's ``reference``."""
+    return module(config["reference"])
 
 
 def leaf_norms(tensors: dict) -> dict:

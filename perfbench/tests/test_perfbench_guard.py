@@ -90,35 +90,23 @@ def test_every_name_and_unit_and_file_is_found():
             assert key in conf["published"] and conf[key] != conf["published"][key]
 
 
-# the published key of each value the run takes from ``model``
-PUBLISHED = {
-    "common": {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
-               "vocab_size": "vocab", "tie_word_embeddings": "tie_embeddings",
-               "torch_dtype": "dtype"},
-    "qwen3": {"num_attention_heads": "n_heads",
-              "num_key_value_heads": "n_kv_heads", "head_dim": "head_dim",
-              "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps"},
-    "dense": {"intermediate_size": "d_ff"},
-    "moe": {"moe_intermediate_size": "moe_d_ff", "num_experts": "n_experts",
-            "num_experts_per_tok": "top_k",
-            "router_aux_loss_coef": "aux_coef"},
-    "rwkv": {"head_size": "rwkv_head_dim", "intermediate_size": "d_ff",
-             "attention_hidden_size": "d_model",
-             "time_decay_extra_dim": "lora_r"},
-}
+# published keys that every configuration maps to a value of ``model``
+COMMON = {"hidden_size": "d_model", "num_hidden_layers": "n_layers",
+          "vocab_size": "vocab", "tie_word_embeddings": "tie_embeddings",
+          "torch_dtype": "dtype"}
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in
                                   spec.load_benchmark()["configs"]])
 def test_the_run_takes_the_published_values(name):
-    """Each value of ``model`` that the published configuration gives is
-    the published one, or the run's value of a departure the file
-    states (what the port fixes otherwise)."""
+    """Each value of ``model`` that the published configuration gives
+    (``model_keys``: published key -> ``model`` key) is the published
+    one, or the run's value of a departure the file states (what the port
+    fixes otherwise)."""
     conf = spec.read_json(ROOT / "perfbench" / "configs" / f"{name}.json")
     model, departures = conf["model"], conf["departures"]
-    family = model["family"]
-    table = dict(PUBLISHED["common"], **PUBLISHED[family],
-                 **(PUBLISHED["qwen3"] if family != "rwkv" else {}))
+    table = conf["model_keys"]
+    assert table.items() >= COMMON.items()
     for key, mkey in table.items():
         want = departures[key]["run"] if key in departures else conf[key]
         assert model[mkey] == want, (key, mkey)
@@ -141,7 +129,7 @@ def test_config_leaves_are_the_ports_tree(name):
     drawn = {p: (dt, (n,) + shape if n else shape)
              for p, dt, shape, _, n in weights.leaves(conf)}
     assert drawn == {p: (t.dtype, tuple(t.shape)) for p, t in meta.items()}
-    assert {k: list(v) for k, v in leaf_shapes(conf["model"]).items()} == {
+    assert {k: list(v) for k, v in leaf_shapes(conf).items()} == {
         k: list(v[1]) for k, v in conf["leaves"].items()}
     assert cfg.dtype == conf["model"]["dtype"] == "bfloat16"
     assert torch.empty(0, dtype=getattr(torch, cfg.dtype)).dtype == torch.bfloat16

@@ -17,7 +17,7 @@ def _window(ops, launches=None, host=(), window_s=1.0, steps=2, cell=MOE):
                         host_ops=sorted(host, key=lambda o: o[1]),
                         window_s=window_s, steps=steps,
                         launches=launches or {}, model=c.config["model"],
-                        traffic=c.traffic)
+                        traffic=c.traffic, reference=c.config["reference"])
 
 
 def test_union_counts_overlap_once():

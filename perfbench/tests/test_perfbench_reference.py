@@ -69,14 +69,14 @@ def test_optimizer_equals_the_ports(name, monkeypatch):
 @pytest.mark.parametrize("name", cells())
 def test_both_sides_get_the_same_weights(name):
     conf = tiny_cell(name).config
-    prog = weights.flat_program(weights.program_params(conf, 2 ** 31 + 7,
-                                                       "cpu"))
+    prog = weights.layer_slices(conf, weights.program_params(
+        conf, 2 ** 31 + 7, "cpu"))
     ref = weights.reference_params(conf, 2 ** 31 + 7, "cpu")
     assert set(prog) == set(ref)
     for k, ts in ref.items():
-        stacked = torch.stack(ts) if k.startswith("layers.") else ts[0]
-        assert torch.equal(prog[k].float(), stacked)
-        assert prog[k].float().abs().sum() > 0 or "norm" in k or "ln_x" in k
+        assert torch.equal(torch.stack(prog[k]).float(), torch.stack(ts))
+        assert torch.stack(prog[k]).float().abs().sum() > 0 \
+            or "norm" in k or "ln_x" in k
 
 
 @pytest.mark.parametrize("name", cells())

@@ -13,8 +13,7 @@ import pytest
 import torch
 
 from perfbench import trace, training, traffic
-from perfbench_tiny import cells, leaf_shapes, tiny_cell
-from test_perfbench_card import SMALL
+from perfbench_tiny import cells, small_cell
 from test_perfbench_metrics import _window, read
 
 SPAN_METRICS = ("fwd_device_ms", "bwd_device_ms", "opt_device_ms",
@@ -81,18 +80,6 @@ def card():
     return torch.device("cuda", 0)
 
 
-def small_cell(name):
-    """The cell ``name`` at the card test's small size, in float32."""
-    cell = tiny_cell(name)
-    m = cell.config["model"]
-    m.update(SMALL[m["family"]])
-    shapes = leaf_shapes(m)
-    cell.config["leaves"] = {k: ["float32", shapes[k], init] for k, (
-        _, _, init) in cell.config["leaves"].items()}
-    cell.traffic.update(batch=2, seq_len=256)
-    return cell
-
-
 def _traced(ts, pool, card, cell):
     """A window of ``len(pool)`` steps under the profiler, as the
     benchmark's traced run takes it."""
@@ -103,7 +90,8 @@ def _traced(ts, pool, card, cell):
                                          lambda *a, **k: None)
     return trace.from_profiler(prof, window_s=w1 - w0, steps=len(losses),
                                launches={}, model=cell.config["model"],
-                               traffic=cell.traffic)
+                               traffic=cell.traffic,
+                               reference=cell.config["reference"])
 
 
 @pytest.mark.cuda

@@ -28,6 +28,7 @@ class Window:
     launches: dict              # the program's kernel calls in it, by name
     model: dict                 # the configuration's ``model``
     traffic: dict               # the traffic mix
+    reference: str              # the configuration's reference module
 
 
 def from_profiler(prof, **kw) -> Window:

@@ -4,12 +4,13 @@ configuration's widths, driven back to back through the window.
 Set-up makes the weights on the device from the seed, builds the train
 state, and runs the first ``setup_steps`` steps through the window's own
 call on batches of their own (the kernels load and every shape of the
-cell warms up); it reads from them what ``correct`` compares.  The window
-then runs fresh batches, made in set-up and kept on the device, with no
-host read inside it, and ends at the first step boundary after
-``seconds``, after a synchronise.  Then the program's state is freed and
-the reference runs the first steps again on the same weights and
-batches.
+cell warms up); it reads from them what ``correct`` compares, then runs
+one more step, so that the allocator settles after that reading's work
+before the window opens.  The window then runs fresh batches, made in
+set-up and kept on the device, with no host read inside it, and ends at
+the first step boundary after ``seconds``, after a synchronise.  Then the
+program's state is freed and the reference runs the first steps again on
+the same weights and batches.
 """
 
 from __future__ import annotations
@@ -28,18 +29,23 @@ TRACE_STEPS = 6                 # steps a traced window holds at most
 
 def port_config(config: dict):
     """The port's ``ModelConfig`` of a configuration file: the port's
-    entry for ``arch`` with the file's ``model`` values.  Raises where
-    the port fixes a value the file states otherwise."""
+    entry for ``arch`` with the file's ``model`` values.  Raises on a key
+    the port has no field for, and where the port fixes a value the file
+    states otherwise."""
     from repro_torch import configs
     from repro_torch.models import rwkv
     from repro_torch.models.config import ModelConfig
     model = config["model"]
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    fixed = {"aux_coef": 0.01, "lora_r": rwkv.LORA_R,
+             "decay_scale": rwkv.DECAY_SCALE}
+    unknown = sorted(set(model) - fields - set(fixed))
+    if unknown:
+        raise ValueError(f"the port has no {unknown} (the configuration "
+                         f"{config['name']!r} states them)")
     cfg = dataclasses.replace(configs.get(config["arch"]),
                               **{k: v for k, v in model.items()
                                  if k in fields})
-    fixed = {"aux_coef": 0.01, "lora_r": rwkv.LORA_R,
-             "decay_scale": rwkv.DECAY_SCALE}
     for key, value in fixed.items():
         if key in model and model[key] != value:
             raise ValueError(f"the port fixes {key} = {value}, the "
@@ -53,16 +59,17 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def grad_readings(opt: dict, params: dict, state: dict) -> tuple:
+def grad_readings(config: dict, params: dict, state: dict) -> tuple:
     """The first step's clipped gradient as the optimizer got it, worked
     out from its state after that step: AdamW's first moment is (1 - b1)
     g; Adafactor's row means (decay 0 at step 1) hold the mean of g^2
     over each row's last dim (the whole g^2 of a leaf it does not
     factor).  Returns ({path: norm}, {path: ``weights.row_means_sq``})."""
+    opt = config["optimizer"]
     flat_p = weights.flat_program(params)
     norms, rows = {}, {}
     if opt["name"] == "adamw":
-        mu = weights.layer_slices(state["mu"])
+        mu = weights.layer_slices(config, state["mu"])
         for k, ts in mu.items():
             norms[k] = math.sqrt(sum(float(t.double().square().sum())
                                      for t in ts)) / (1 - opt["b1"])
@@ -114,12 +121,12 @@ def first_steps(ts, batches, config: dict, seed: int, device):
     for i, batch in enumerate(batches):
         prog["loss"].append(ts.step(batch)["loss"])
         if i == 0:
-            prog["grad"], prog["rows"] = grad_readings(config["optimizer"],
+            prog["grad"], prog["rows"] = grad_readings(config,
                                                        *ts.state.read())
         _sync(device)
         ends.append(time.perf_counter())
-    prog["change"] = weights.change_norms(config, seed,
-                                          weights.layer_slices(ts.params()))
+    prog["change"] = weights.change_norms(
+        config, seed, weights.layer_slices(config, ts.params()))
     prog["loss"] = [float(x) for x in prog["loss"]]
     return prog, (ends[-1] - ends[1]) / max(len(ends) - 2, 1), \
         ends[1] - ends[0]
@@ -165,8 +172,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     log(f"set-up steps done: {time.perf_counter() - t0:.4f} s (the first "
         f"{first_s:.4f} s)", file=sys.stderr)
     n_pool = (TRACE_STEPS if trace else math.ceil(seconds / max(step_s, 1e-3) * 2)) + 8
-    pool = traffic.device_batches(traf, model["vocab"], n_setup + n_pool,
+    pool = traffic.device_batches(traf, model["vocab"], n_setup + 1 + n_pool,
                                   seed, device)[n_setup:]
+    ts.step(pool.pop(0))
     _sync(device)
     setup_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     if on_card:
@@ -191,7 +199,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         from . import trace as tr
         win = tr.from_profiler(prof, window_s=w1 - w0, steps=steps,
                                launches=launches, model=model,
-                               traffic=traf)
+                               traffic=traf, reference=conf["reference"])
         result["metrics"] = tr.read_metrics(win, cell.per_layer)
         result["breakdown"] = {"device_ops": tr.top_ops(win.device_ops),
                                "idle_gaps": tr.idle_gaps(win)}

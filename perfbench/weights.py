@@ -3,8 +3,11 @@
 A configuration file lists its leaves (``"leaves"``): path, dtype, the
 shape of one layer, and the init: a standard deviation, ``"zeros"``, or
 ``"fan_in:i,j"`` (the standard deviation one over the root of the
-product of those dims of the layer's shape).  A path under ``layers.``
-is stacked over the configuration's layers, as the port keeps them.
+product of those dims of the layer's shape).  A leaf whose first path
+component names a stack of ``stacks`` (the file's ``"stacks"``: {first
+path component: layers}, by default {"layers": n_layers}) is stacked over
+that stack's layers, as the port keeps them; any other leaf is drawn
+once.
 
 Each layer slice of each leaf is drawn by its own generator, seeded from
 (seed, path, layer), so any slice can be drawn again alone: the
@@ -37,15 +40,26 @@ def slice_seed(seed: int, path: str, layer: int) -> int:
             + layer) % (1 << 63)
 
 
+def stacks(config: dict) -> dict:
+    """{first path component: layers} of a config's stacked leaves."""
+    out = config.get("stacks", {"layers": config["model"]["n_layers"]})
+    for name, n in out.items():
+        if type(n) is not int or n < 1:
+            raise ValueError(f"stack {name!r} has {n!r} layers")
+    return out
+
+
+def _stacked(st: dict, path: str) -> int:
+    """The layers of the stack ``path`` belongs to, or 0."""
+    return st.get(path.split(".")[0], 0)
+
+
 def leaves(config: dict):
     """[(path, dtype, per-layer shape, std, layers or 0)] of a config."""
-    n_layers = config["model"]["n_layers"]
-    out = []
-    for path, (dtype, shape, init) in config["leaves"].items():
-        stacked = path.startswith("layers.")
-        out.append((path, getattr(torch, dtype), tuple(shape),
-                    _std(init, shape), n_layers if stacked else 0))
-    return out
+    st = stacks(config)
+    return [(path, getattr(torch, dtype), tuple(shape), _std(init, shape),
+             _stacked(st, path))
+            for path, (dtype, shape, init) in config["leaves"].items()]
 
 
 def draw(config: dict, seed: int, path: str, layer: int, device,
@@ -110,8 +124,8 @@ def _nest(flat: dict) -> dict:
 
 
 def program_params(config: dict, seed: int, device) -> dict:
-    """The parameter tree as the port takes it: stacked layer leaves
-    ``(n_layers, ...)``, an empty ``tail``."""
+    """The parameter tree as the port takes it: a stacked leaf
+    ``(layers, ...)``, an empty ``tail``."""
     flat = {}
     for path, dtype, shape, _, n in leaves(config):
         t = torch.empty(((n,) if n else ()) + shape, dtype=dtype,
@@ -134,12 +148,21 @@ def reference_params(config: dict, seed: int, device) -> dict:
     return out
 
 
-def layer_slices(tree: dict) -> dict:
+def layer_slices(config: dict, tree: dict) -> dict:
     """{path: [one tensor a layer]} of a port tree: a stacked leaf's
     layers as views, an unstacked leaf in a list of one (the layout of
     ``reference_params``)."""
-    return {path: list(t.unbind(0)) if path.startswith("layers.") else [t]
+    st = stacks(config)
+    return {path: list(t.unbind(0)) if _stacked(st, path) else [t]
             for path, t in flat_program(tree).items()}
+
+
+def layer_params(params: dict, stack: str, j: int) -> dict:
+    """{path below the stack: tensor} of layer ``j`` of the stack
+    ``stack`` in {path: [one tensor a layer]}."""
+    head = stack + "."
+    return {path[len(head):]: ts[j] for path, ts in params.items()
+            if path.startswith(head)}
 
 
 def flat_program(tree: dict, prefix: str = "") -> dict:
