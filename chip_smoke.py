@@ -47,7 +47,9 @@ Phases, each printed as one JSON object on its own line:
               kernels: at hd 128 the wgmma ones; the dK/dV sum where the
               heads are split), and at recurrentgemma-9b's and the MoE's
               shapes against every head split and SDPA's backward in
-              turns (``k2_bwd_splits``).  The
+              turns (``k2_bwd_splits``); and at mellum2-12b-a2.5b's
+              (B=1, T=16,384, GQA 32/4), windowed (1,024) and full, held
+              to the plain version over blocks of 2,048 queries.  The
               backward kernels of K5, K3 and K4,
               through the autograd Functions training calls, are checked
               against the plain backwards ``ref.*_backward`` (K5_BWD_CASES,
@@ -98,7 +100,7 @@ Phases, each printed as one JSON object on its own line:
               twice, ``torch.equal``); these rows carry those runs'
               launches.  In ``kernel_traces`` each launch of K3's
               backward is labelled ``dx`` or ``dw``.
-  4. train    four families at their published widths (TRAIN_CASES),
+  4. train    five families at their published widths (TRAIN_CASES),
               each in turn: the float32 ``loss_fn`` gradients through the
               kernels and their backwards against ``attn_impl="plain"``
               (each leaf by relative L2 at 2e-3; qwen3-0.6b at 28 layers,
@@ -111,7 +113,9 @@ Phases, each printed as one JSON object on its own line:
               32, AdamW; recurrentgemma-9b: K5 50 / 26 and K2 24 / 12,
               Adafactor, the loss in 4 sequence chunks;
               qwen3-moe-235b-a22b at 3 of 94 layers: K3 18 / 9 and K2 6 /
-              3, Adafactor) and
+              3, Adafactor; mellum2-12b-a2.5b at one period, 4 of 28
+              layers, B=1, T=16,384, its float32 gradients at T=2,048:
+              K3 24 / 12 and K2 8 / 4, windowed and full, Adafactor) and
               each backward's CUDA launches in the traced step (K2's
               backward 4 a call at recurrentgemma-9b's 8 head splits, 3
               elsewhere), no CUDA-core kernel of K2's backward, every
@@ -313,8 +317,8 @@ K3_CASES = [(E, C, D, F_, False, None) for _, E, C, D, F_ in K3_PATHS] + [
 # K2's backward, (B, H, Hkv, T, S, hd, causal, window): causal T = S, full,
 # T < S, a window of 2048 at T = S = 4096 (MQA), ragged T and S, every head
 # dim, G = 1, 2, 4, 8 and 16; recurrentgemma-9b's training shape itself (8
-# head splits in bf16), 16 splits with a ragged S at hd 256, and hd 160
-# with a window (4 splits)
+# head splits in bf16), 16 splits with a ragged S at hd 256, hd 160 with a
+# window (4 splits), and mellum2-12b-a2.5b's heads with its window
 K2_BWD_CASES = [
     (2, 16, 8, 1024, 1024, 128, True, 0),
     (2, 16, 8, 1024, 1024, 128, False, 0),
@@ -331,13 +335,15 @@ K2_BWD_CASES = [
     # kernels (K2_BWD_ROUTES)
     (2, 64, 4, 1024, 1024, 128, True, 0),
     (1, 16, 1, 300, 700, 128, True, 100),
-    (2, 16, 8, 1000, 1000, 128, True, -1)]
+    (2, 16, 8, 1000, 1000, 128, True, -1),
+    # mellum2-12b-a2.5b's heads (GQA 32/4) with its window of 1,024
+    (1, 32, 4, 4096, 4096, 128, True, 1024)]
 # the bf16 kernels each case takes (flash_attention._bwd_route): wgmma at
 # hd 128 where TMA can read q, k, v and dout, tc at hd 32 / 64 and for the
 # unaligned q, wide at hd 160 / 256; float32 takes cc
 K2_BWD_ROUTES = ["wgmma", "wgmma", "wgmma", "wide", "tc", "wide", "wide",
                  "tc", "wgmma", "wide", "wide", "wide", "wide", "wgmma",
-                 "wgmma", "tc"]
+                 "wgmma", "tc", "wgmma"]
 
 # The kernels of each backward route the training shapes take, as the
 # profiler names them: K2's (flash_attention._bwd_route; bwd_dot and,
@@ -351,6 +357,44 @@ K4_BWD_KERNELS = {"tc": ("rwkv_bwd_dstate_tc", "rwkv_bwd_chunk_tc")}
 # whose dK/dV head splits are swept (``k2_bwd_splits`` lines)
 K2_TRAIN_ROUTES = {128: "wgmma", 256: "wide"}
 K2_SPLIT_SWEEPS = ("recurrentgemma-9b train", "qwen3-moe-235b-a22b train")
+
+
+def _k2_plain_blocks(torch, ref, block: int = 2048):
+    """(attention_lse, attention_backward): ``ref``'s, over blocks of
+    ``block`` queries, each against the keys its causal window reaches
+    (the plain mask is bottom-right aligned, so a block's keys end at its
+    last query).  At T = 16,384 the whole float32 score matrix of 32
+    heads would be 34 GB.  The backward's dk and dv are summed over the
+    blocks in float32 and rounded to k's dtype once."""
+    def lse(q, k, v, *, window=0):
+        outs, lses = [], []
+        for t0 in range(0, q.shape[2], block):
+            t1 = min(q.shape[2], t0 + block)
+            k0 = max(0, t0 - window + 1) if window else 0
+            o, l = ref.attention_lse(q[:, :, t0:t1], k[:, :, k0:t1],
+                                     v[:, :, k0:t1], window=window)
+            outs.append(o)
+            lses.append(l)
+        return torch.cat(outs, 2), torch.cat(lses, 2)
+
+    def backward(q, k, v, out, lse, dout, *, window=0):
+        dq = torch.empty_like(q)
+        dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+                  for _ in range(2))
+        for t0 in range(0, q.shape[2], block):
+            t1 = min(q.shape[2], t0 + block)
+            k0 = max(0, t0 - window + 1) if window else 0
+            q_, k_, v_, o_, do_ = (t.float() for t in (
+                q[:, :, t0:t1], k[:, :, k0:t1], v[:, :, k0:t1],
+                out[:, :, t0:t1], dout[:, :, t0:t1]))
+            a, b, c = ref.attention_backward(q_, k_, v_, o_,
+                                             lse[:, :, t0:t1], do_,
+                                             window=window)
+            dq[:, :, t0:t1] = a
+            dk[:, :, k0:t1] += b
+            dv[:, :, k0:t1] += c
+        return dq, dk.to(k.dtype), dv.to(v.dtype)
+    return lse, backward
 
 
 def _k2_bwd_kernel_ok(name: str, route: str) -> bool:
@@ -1106,11 +1150,18 @@ def kernel_phase(torch, dev) -> list[dict]:
 
     # the training paths: K2's forward and its backward at each trained
     # family's shape, the backward beside SDPA's backward (only the
-    # torch.autograd.grad call is timed)
+    # torch.autograd.grad call is timed); mellum2-12b-a2.5b's two kinds at
+    # the benchmark cell's 16,384 tokens, held to the plain version over
+    # blocks of queries (``_k2_plain_blocks``)
     for path, (B, H, Hkv, T, hd, window) in (
             ("qwen3-0.6b train", (8, 16, 8, 1024, 128, 0)),
             ("recurrentgemma-9b train", (8, 16, 1, 1024, 256, 2048)),
-            ("qwen3-moe-235b-a22b train", (8, 64, 4, 1024, 128, 0))):
+            ("qwen3-moe-235b-a22b train", (8, 64, 4, 1024, 128, 0)),
+            ("mellum2-12b-a2.5b train, windowed",
+             (1, 32, 4, 16384, 128, 1024)),
+            ("mellum2-12b-a2.5b train, full", (1, 32, 4, 16384, 128, 0))):
+        plain_lse, plain_bwd = (ref.attention_lse, ref.attention_backward) \
+            if T <= 4096 else _k2_plain_blocks(torch, ref)
         tshape = {"B": B, "H": H, "Hkv": Hkv, "T": T, "S": T, "hd": hd,
                   "causal": True, "window": window, "dtype": "bfloat16"}
         mask = None
@@ -1120,16 +1171,22 @@ def kernel_phase(torch, dev) -> list[dict]:
         q, k, v, dout = (rand(B, n, T, hd, dtype=bf)
                          for n in (H, Hkv, Hkv, H))
 
-        def sdpa(q, k, v, mask=mask):
+        def sdpa(q, k, v, mask=mask, repeat=T > 4096 and window):
+            if repeat:
+                # GQA by repeated k and v: the memory-efficient kernel then
+                # takes the mask, where the math one would hold 32 x
+                # 16,384^2 scores
+                k, v = (t.repeat_interleave(q.shape[1] // t.shape[1], 1)
+                        for t in (k, v))
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True)
+                enable_gqa=not repeat)
         row("flash_attention", path, tshape, (q, k, v),
             lambda q, k, v, w=window: ops.flash_attention(q, k, v, window=w),
-            lambda q, k, v, w=window: ref.attention(q, k, v, window=w),
+            lambda q, k, v, w=window: plain_lse(q, k, v, window=w)[0],
             sdpa, cost.flash_attention(B, H, Hkv, T, T, hd, bf, window=window),
-            K2)
-        out, lse = ref.attention_lse(q, k, v, window=window)
+            K2, plain_reps=15 if T <= 4096 else 3)
+        out, lse = plain_lse(q, k, v, window=window)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = sdpa(*leaves)
         route, splits = k2._bwd_plan(q, k, v, dout)
@@ -1145,12 +1202,13 @@ def kernel_phase(torch, dev) -> list[dict]:
                                           "route": route},
             (q, k, v, out, lse, dout),
             lambda *a, w=window: k2.backward(*a, window=w),
-            lambda *a, w=window: ref.attention_backward(*a, window=w),
+            lambda *a, w=window: plain_bwd(*a, window=w),
             lambda *_: torch.autograd.grad(sdpa_out, leaves, dout,
                                            retain_graph=True),
             cost.flash_attention_bwd(B, H, Hkv, T, T, hd, bf, window=window),
             "none: no Pallas backward; the reference takes jax.grad of "
-            "src/repro/models/layers.py:51", scaled=True)
+            "src/repro/models/layers.py:51", scaled=True,
+            plain_reps=15 if T <= 4096 else 3)
         trace("flash_attention_bwd", path,
               lambda: k2.backward(q, k, v, out, lse, dout, window=window))
         names = [t["kernel"] for t in traces[-1]["kernels"]]
@@ -1181,6 +1239,10 @@ def kernel_phase(torch, dev) -> list[dict]:
                   "ms": {d: statistics.median(t) for d, t in sweep.items()},
                   "sdpa_backward_ms": statistics.median(sdpa_ms)})
         del q, k, v, dout, out, lse, leaves, sdpa_out, mask
+    # the training paths' rows as soon as they are timed (the kernels line
+    # comes only at the end of the run)
+    emit({"phase": "k2_train", "rows": [r for r in rows if r["name"] in (
+        "flash_attention", "flash_attention_bwd") and "train" in r["path"]]})
 
     # all C rows of every expert (rows=None), then the serve
     # path's routed decode: the rows of a seeded top-8 draw for 4 tokens,
@@ -1630,6 +1692,22 @@ TRAIN_CASES = [
                              "flash_attention_bwd": 1},
                 "why": "float32 parameters and gradients of 3 layers "
                        "(about 70 GB) do not fit beside the activations"}},
+    # one period of mellum2-12b-a2.5b's pattern, three windowed layers
+    # (1,024) and a full one with YaRN, at the benchmark cell's 16,384
+    # tokens: K2 of both kinds in one step (its training rows take these
+    # launches)
+    {"arch": "mellum2_12b_a2_5b", "optimizer": "adafactor", "lr": 1e-4,
+     "B": 1, "T": 16384, "one_batch": True,
+     "cut": {"n_layers": 4,
+             "why": "one period of the layer pattern; the benchmark cell "
+                    "trains 16 layers"},
+     "per_step": {"moe_gmm": 24, "moe_gmm_bwd": 12, "flash_attention": 8,
+                  "flash_attention_bwd": 4, "adafactor": 13},
+     "bwd_routes": {"flash_attention_bwd": "wgmma"},
+     "parity": {"B": 1, "T": 2048,
+                "launches": {"moe_gmm": 24, "moe_gmm_bwd": 12,
+                             "flash_attention": 8,
+                             "flash_attention_bwd": 4}}},
 ]
 
 

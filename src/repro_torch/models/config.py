@@ -37,6 +37,19 @@ class ModelConfig:
     window: int = 0                  # local attention window (0 -> global)
     lru_width: int = 0               # 0 -> d_model
 
+    # Per-layer attention kind (Mellum2): with ``window`` > 0, attention
+    # layer i is full (no window) when i % global_every == global_every - 1
+    # and windowed otherwise; 0 -> every attention layer takes ``window``
+    global_every: int = 0
+    # YaRN (arXiv:2309.00071) on the full attention layers: the rotary
+    # frequencies of dims past the correction dim of one rotation over
+    # ``yarn_original_len`` divided by ``yarn_factor``, those before that
+    # of 32 rotations kept, a linear ramp between; cos and sin times
+    # 0.1 ln(yarn_factor) + 1 (``layers.yarn_ramp``, ``layers.rope``).
+    # A factor of 0 -> plain RoPE everywhere
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 0
+
     # modality frontend stubs
     prefix_len: int = 0              # precomputed patch/frame embeddings
 
@@ -74,6 +87,17 @@ class ModelConfig:
     @property
     def lru_d(self) -> int:
         return self.lru_width or self.d_model
+
+    @property
+    def mixed_attn(self) -> bool:
+        """Windowed and full attention layers in one model."""
+        return bool(self.window and self.global_every)
+
+    def layer_window(self, i: int) -> int:
+        """The window of attention layer ``i``: 0 (full) for every
+        ``global_every``-th layer, ``window`` for the others."""
+        g = self.global_every
+        return 0 if g and i % g == g - 1 else self.window
 
     def smoke(self) -> "ModelConfig":
         """A reduced same-family config for CPU smoke tests."""

@@ -1,6 +1,6 @@
-"""Shared layers in PyTorch: RMSNorm, RoPE, GQA attention (chunked
-online-softmax for long sequences), gated MLP — the counterparts of
-``repro.models.layers``.
+"""Shared layers in PyTorch: RMSNorm, RoPE (and YaRN's scaled RoPE, which
+the JAX package lacks), GQA attention (chunked online-softmax for long
+sequences), gated MLP — the counterparts of ``repro.models.layers``.
 
 Layouts are the reference's:
   * attention projections:  wq (D, H, hd)   wk/wv (D, Hkv, hd)   wo (H, hd, D)
@@ -35,19 +35,67 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
-def rope(x, positions, theta: float = 1e6):
+def _rope_freqs(half: int, theta: float, device):
+    # built on the device from Python scalars: a table made on the host
+    # and copied over would make every call wait for the device to drain
+    return torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) * (math.log(theta) / half))
+
+
+# YaRN's rotation counts over the original length that bound its ramp
+# (the paper's beta and alpha, Mellum2's published beta_fast and beta_slow)
+YARN_BETA_FAST = 32.0
+YARN_BETA_SLOW = 1.0
+
+
+def yarn_attn_factor(cfg: ModelConfig) -> float:
+    """YaRN's factor on cos and sin, sqrt(1/t) = 0.1 ln(factor) + 1."""
+    return 0.1 * math.log(cfg.yarn_factor) + 1.0
+
+
+def yarn_ramp(cfg: ModelConfig, hd: int) -> tuple[float, float]:
+    """(low, high): YaRN's correction dims, the frequency index below
+    which a dim keeps its frequency (``YARN_BETA_FAST`` or more rotations
+    over ``yarn_original_len``) and the one from which it is interpolated
+    (``YARN_BETA_SLOW`` or fewer), floored and ceiled as the
+    ``yarn`` rope type of Hugging Face transformers takes them."""
+    def dim(rotations: float) -> float:
+        return hd * math.log(cfg.yarn_original_len
+                             / (rotations * 2 * math.pi)) \
+            / (2 * math.log(cfg.rope_theta))
+    low = max(math.floor(dim(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(dim(YARN_BETA_SLOW)), hd - 1)
+    if high == low:
+        high += 0.001
+    return low, high
+
+
+def yarn_freqs(cfg: ModelConfig, hd: int, device):
+    """YaRN's (hd / 2,) float32 frequencies: theta^(-2i/hd) blended into
+    theta^(-2i/hd) / factor over a linear ramp in i between the
+    correction dims of ``yarn_ramp``."""
+    half = hd // 2
+    low, high = yarn_ramp(cfg, hd)
+    freqs = _rope_freqs(half, cfg.rope_theta, device)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0.0, 1.0)
+    return freqs / cfg.yarn_factor * ramp + freqs * (1.0 - ramp)
+
+
+def rope(x, positions, theta: float = 1e6, yarn: ModelConfig | None = None):
     """x: (..., T, n, hd); positions: (..., T).  Half-split rotation with
-    float32 angles."""
+    float32 angles; with ``yarn`` (a config whose ``yarn_factor`` is set)
+    YaRN's frequencies, cos and sin times ``yarn_attn_factor(yarn)``."""
     hd = x.shape[-1]
     half = hd // 2
-    # built on x's device from Python scalars: a table made on the host
-    # and copied over would make every call wait for the device to drain
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
-                      * (math.log(theta) / half))
+    freqs = _rope_freqs(half, theta, x.device) if yarn is None else \
+        yarn_freqs(yarn, hd, x.device)
     angles = positions[..., None].float() * freqs            # (..., T, half)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        m = yarn_attn_factor(yarn)
+        cos, sin = cos * m, sin * m
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -153,16 +201,18 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator, dtype, device):
     return p
 
 
-def project_qkv(cfg: ModelConfig, p, x, positions):
-    """q (B,T,H,hd), k/v (B,T,Hkv,hd): projections, qk-norm and RoPE."""
+def project_qkv(cfg: ModelConfig, p, x, positions, window: int = 0):
+    """q (B,T,H,hd), k/v (B,T,Hkv,hd): projections, qk-norm and RoPE (YaRN
+    where the config has it and the layer's ``window`` is 0)."""
     q = torch.einsum("btd,dnh->btnh", x, p["wq"])
     k = torch.einsum("btd,dnh->btnh", x, p["wk"])
     v = torch.einsum("btd,dnh->btnh", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return rope(q, positions, cfg.rope_theta), \
-        rope(k, positions, cfg.rope_theta), v
+    yarn = cfg if cfg.yarn_factor and not window else None
+    return rope(q, positions, cfg.rope_theta, yarn), \
+        rope(k, positions, cfg.rope_theta, yarn), v
 
 
 def use_kernels(cfg: ModelConfig, x) -> bool:
@@ -178,7 +228,7 @@ def attn_block(cfg: ModelConfig, p, x, positions, *, cache=None,
     token's k/v are written into the cache in place (the reference's
     donated buffer).  A windowed decode goes through the ring cache
     (``transformer._attn_with_ring``) instead."""
-    q, k, v = project_qkv(cfg, p, x, positions)
+    q, k, v = project_qkv(cfg, p, x, positions, window)
     kernels = use_kernels(cfg, x)
     if cfg.ulysses and cache is None:
         q, k, v = ulysses_heads(q), ulysses_heads(k), ulysses_heads(v)

@@ -9,6 +9,15 @@ Layer recipes
                     recurrent + 1 local-attention — scanned; the remainder
                     is an unrolled tail.
 
+Each attention layer has a kind, from its index i: windowed (keys in
+(t - window, t], plain RoPE) or full (every earlier key, with YaRN's RoPE
+where ``cfg.yarn_factor`` is set).  ``cfg.window`` alone makes every
+attention layer windowed; with ``cfg.global_every`` as well every
+``global_every``-th layer is full (``cfg.layer_window(i)``), and while the
+profiler runs each such layer's attention is the span
+``repro_torch/attn_window`` or ``repro_torch/attn_full``.  The stacked
+leaves are the same for both kinds.
+
 With ``cfg.scan_layers`` the layer leaves stay **stacked** as the
 reference's ``vmap``-ed init leaves them: ``params["layers"]`` is one dict
 of ``(n_steps, ...)`` leaves, or for a hybrid a list of ``attn_every`` such
@@ -22,6 +31,9 @@ Caches, stacked the same way, plus one scalar ``length`` (a Python int)
 shared by every slot:
   attention (global) : k/v (B, S, Hkv, hd)
   attention (window) : ring k/v (B, W, Hkv, hd) + slot positions (W,)
+                       (one kind for every layer: a model that mixes the
+                       kinds has no cache, and ``init_cache`` and
+                       ``decode_step`` raise on it)
   rwkv               : S (B, H, M, M) float32 + token-shift states
   rglru              : h (B, dl) float32 + conv state (B, 3, dl)
 Decode writes every new entry and state into the cache in place — the
@@ -44,6 +56,7 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.core.torchstate import tree_map
 from repro_torch.dist.collectives import rank_in
 from repro_torch.dist.sharding import (current_mesh, data_axes, mesh_shape,
@@ -216,6 +229,15 @@ def _layer_cache(cfg: ModelConfig, i: int, B: int, max_len: int, lead,
             "conv": zeros(B, RGLRU.CONV_W - 1, cfg.lru_d)}
 
 
+def _no_mixed_cache(cfg: ModelConfig) -> None:
+    if cfg.mixed_attn:
+        raise NotImplementedError(
+            f"{cfg.name} mixes windowed and full attention layers: decode "
+            f"needs a ring cache for the windowed layers beside full caches "
+            f"for every {cfg.global_every}th layer in one cache, which "
+            f"init_cache does not make")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None, *,
                device="cuda", mesh=None):
     """Zeroed decode cache in the layout of ``init_params`` (see the module
@@ -225,7 +247,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None, *,
     With ``mesh`` and ``cfg.decode_shard_s`` (and no window) each rank
     allocates only its shard of the attention k/v leaves, batch over the
     data dims and S over ``model``, as ``DTensor``s; when the batch or S do
-    not divide, or otherwise, the cache is replicated."""
+    not divide, or otherwise, the cache is replicated.  A model that mixes
+    windowed and full attention layers raises ``NotImplementedError``."""
+    _no_mixed_cache(cfg)
     dev = resolve_device(device)
     max_len = max_len or cfg.max_target_len
     n_scanned, tail = _layer_plan(cfg)
@@ -285,7 +309,7 @@ def _attn_with_ring(cfg: ModelConfig, p, x, positions, cache, length: int):
     """Windowed attention against the ring cache (B, W, ...) for decode.
     The new k/v land at slot ``length % W`` (clamped to W - T, like
     ``lax.dynamic_update_slice``) with their positions in ``slot_pos``."""
-    q, k, v = L.project_qkv(cfg, p, x, positions)
+    q, k, v = L.project_qkv(cfg, p, x, positions, cfg.window)
     kc, vc, sp = cache["k"], cache["v"], cache["slot_pos"]
     W, T = kc.shape[1], x.shape[1]
     start = max(0, min(length % W, W - T))
@@ -306,9 +330,11 @@ def _attn_with_ring(cfg: ModelConfig, p, x, positions, cache, length: int):
     return torch.einsum("btnh,nhd->btd", out, p["wo"])
 
 
-def _block(cfg: ModelConfig, p, x, positions, cache, length, mesh=None):
-    """One layer.  cache=None for prefill/forward; else this layer's cache
-    views, updated in place.  Returns (x, the layer's MoE aux loss)."""
+def _block(cfg: ModelConfig, p, x, positions, cache, length, mesh=None,
+           layer: int = 0):
+    """One layer, the ``layer``-th in execution order.  cache=None for
+    prefill/forward; else this layer's cache views, updated in place.
+    Returns (x, the layer's MoE aux loss)."""
     mesh = mesh if mesh is not None else current_mesh()
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.family == "rwkv":
@@ -331,8 +357,12 @@ def _block(cfg: ModelConfig, p, x, positions, cache, length, mesh=None):
                                    length)
     else:
         c = None if cache is None else {**cache, "length": length}
-        y, _ = L.attn_block(cfg, p["attn"], h, positions, cache=c,
-                            window=cfg.window)
+        window = cfg.layer_window(layer)
+        kind = telemetry.NOOP if not cfg.mixed_attn else telemetry.span(
+            "repro_torch/attn_window" if window else "repro_torch/attn_full")
+        with kind:
+            y, _ = L.attn_block(cfg, p["attn"], h, positions, cache=c,
+                                window=window)
     x = shard_act(x + y, mesh)
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     aux = 0.0
@@ -380,15 +410,16 @@ def forward_hidden(cfg: ModelConfig, params, batch, mesh=None):
     x = shard_act(x, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = 0.0
-    for p_layer in _scanned(cfg, params["layers"], unbind=True):
+    scanned = _scanned(cfg, params["layers"], unbind=True)
+    for i, p_layer in enumerate(scanned):
         if remat:
             x, aux = checkpoint(_block, cfg, p_layer, x, positions, None,
-                                None, mesh, use_reentrant=False)
+                                None, mesh, i, use_reentrant=False)
         else:
-            x, aux = _block(cfg, p_layer, x, positions, None, None, mesh)
+            x, aux = _block(cfg, p_layer, x, positions, None, None, mesh, i)
         aux_total = aux_total + aux
-    for p_layer in params["tail"]:
-        x, aux = _block(cfg, p_layer, x, positions, None, None, mesh)
+    for i, p_layer in enumerate(params["tail"], start=len(scanned)):
+        x, aux = _block(cfg, p_layer, x, positions, None, None, mesh, i)
         aux_total = aux_total + aux
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
@@ -396,7 +427,9 @@ def forward_hidden(cfg: ModelConfig, params, batch, mesh=None):
 def decode_step(cfg: ModelConfig, params, cache, tokens, mesh=None):
     """One decode step.  tokens: (B,T).  Returns (logits (B,T,V), cache);
     the cache's entries and states are updated in place and the returned
-    cache carries ``length + T``."""
+    cache carries ``length + T``.  A model that mixes windowed and full
+    attention layers raises ``NotImplementedError``."""
+    _no_mixed_cache(cfg)
     length = cache["length"]
     x = params["embed"][tokens.long()]
     T = tokens.shape[1]

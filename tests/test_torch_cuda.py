@@ -53,6 +53,27 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, T, S, causal, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [1024, 0])
+def test_cuda_flash_attention_mellum2_heads_match_plain(cuda, dtype, window):
+    """Mellum2's attention: GQA 32/4 at hd 128 over 4,096 tokens, a
+    windowed layer's (1,024) and a full layer's, on the model's transposed
+    (B, T, H, hd) views."""
+    g = torch.Generator(cuda).manual_seed(0)
+    dt = getattr(torch, dtype)
+    T = 4096
+    q = torch.randn((1, T, 32, 128), generator=g, device=cuda).to(dt)
+    k, v = (torch.randn((1, T, 4, 128), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = ref.attention(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOLS[dtype],
+                               atol=TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,window", [(4096, 2048), (300, 100), (130, 64)])
 def test_cuda_flash_attention_window_matches_plain(cuda, dtype, T, window):
     """recurrentgemma's local attention: MQA, hd=256, sliding window."""
@@ -437,7 +458,8 @@ def test_cuda_rwkv_scan_backward_matches_plain(cuda, dtype, B, H, T, M,
 
 # K2's backward: (B, H, Hkv, T, S, hd, causal, window), the cases
 # chip_smoke.py checks: causal T = S, full, T < S, a window of 2048 at
-# T = S = 4096 (MQA), ragged T and S, every head dim, G = 1, 2, 8 and 16
+# T = S = 4096 (MQA), ragged T and S, every head dim, G = 1, 2, 8 and 16,
+# and Mellum2's heads (GQA 32/4 at hd 128) with its window of 1,024
 K2_BWD_CASES = [
     (2, 16, 8, 1024, 1024, 128, True, 0),
     (2, 16, 8, 1024, 1024, 128, False, 0),
@@ -448,7 +470,8 @@ K2_BWD_CASES = [
     (2, 16, 2, 130, 130, 128, True, 40), (1, 4, 4, 50, 130, 256, False, 0),
     (8, 16, 1, 1024, 1024, 256, True, 2048),   # recurrentgemma-9b training
     (2, 16, 1, 130, 300, 256, False, 0),       # 16 splits, ragged S
-    (2, 32, 8, 1000, 1000, 160, True, 300)]    # hd 160 with a window
+    (2, 32, 8, 1000, 1000, 160, True, 300),    # hd 160 with a window
+    (1, 32, 4, 4096, 4096, 128, True, 1024)]   # mellum2-12b-a2.5b windowed
 
 
 @pytest.mark.cuda
