@@ -109,13 +109,14 @@ Phases, each printed as one JSON object on its own line:
               with its reason); 10 bf16 steps of ``TrainState`` with remat
               at B=8, T=1024 whose loss must fall, the first within 1e-2
               of the plain path's, with the exact kernel launches per step
-              (qwen3-0.6b: K2 56 / 28 backward, AdamW; rwkv6-3b: K4 64 /
-              32, AdamW; recurrentgemma-9b: K5 50 / 26 and K2 24 / 12,
-              Adafactor, the loss in 4 sequence chunks;
-              qwen3-moe-235b-a22b at 3 of 94 layers: K3 18 / 9 and K2 6 /
-              3, Adafactor; mellum2-12b-a2.5b at one period, 4 of 28
-              layers, B=1, T=16,384, its float32 gradients at T=2,048:
-              K3 24 / 12 and K2 8 / 4, windowed and full, Adafactor) and
+              (qwen3-0.6b: K2 56 / 28 backward, AdamW 13, one a leaf;
+              rwkv6-3b: K4 64 / 32, AdamW 20; recurrentgemma-9b: K5 50 /
+              26 and K2 24 / 12, Adafactor 60, the loss in 4 sequence
+              chunks; qwen3-moe-235b-a22b at 3 of 94 layers: K3 18 / 9
+              and K2 6 / 3, Adafactor 15; mellum2-12b-a2.5b at one
+              period, 4 of 28 layers, B=1, T=16,384, its float32
+              gradients at T=2,048: K3 24 / 12 and K2 8 / 4, windowed and
+              full, Adafactor 13; AdamW 0 in the Adafactor cases) and
               each backward's CUDA launches in the traced step (K2's
               backward 4 a call at recurrentgemma-9b's 8 head splits, 3
               elsewhere), no CUDA-core kernel of K2's backward, every
@@ -508,10 +509,11 @@ def need(cond: bool, msg: str) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
-    # the training phases' optimizer frees and allocates leaf-sized
-    # float32 temporaries beside a full-size model: without expandable
-    # segments the allocator's cache fragments (measured on the H100: 20
-    # GB reserved but unallocated when a 9 GB temporary of the MoE failed)
+    # the training phases free and allocate large float32 temporaries (the
+    # logits, the plain path's copies) beside a full-size model: without
+    # expandable segments the allocator's cache fragments (measured on the
+    # H100, when the optimizer still made leaf-sized float32 copies: 20 GB
+    # reserved but unallocated when a 9 GB temporary of the MoE failed)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     import torch
@@ -1598,6 +1600,83 @@ def kernel_phase(torch, dev) -> list[dict]:
           lambda: af_kernel(p, g, vr, vc))
     del p, g, vr, vc, got, want, w
 
+    # AdamW's update of rwkv6-3b's stacked channel-mix key ``layers.ck``,
+    # (32, 2560, 8960) bf16 with float32 moments, 734 M parameters, at step
+    # 3 with the clip's scale 0.7: its two kernel passes (the norm's sum of
+    # squares, then the fused update) against the plain passes of ``ref``
+    # (the float32 PyTorch chain the optimizer ran before the kernels), the
+    # sum at 8e-6, the parameter within one bf16 ulp and the moments at
+    # 1e-6; the update pass is also timed alone against its 22 bytes a
+    # parameter
+    shape = (32, 2560, 8960)
+    p = torch.empty(shape, dtype=bf, device=dev)
+    g = torch.empty_like(p)
+    mu = torch.empty(shape, device=dev)
+    nu = torch.empty(shape, device=dev)
+    for i in range(shape[0]):              # no float32 copy of the leaf
+        p[i] = rand(*shape[1:], dtype=bf) * 0.02
+        g[i] = rand(*shape[1:], dtype=bf) * 1e-4
+        mu[i] = rand(*shape[1:]) * 1e-6
+        nu[i] = rand(*shape[1:]).square_() * 1e-10
+    hyper = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "wd": 0.01}
+    step = [torch.tensor(x, device=dev) for x in
+            (0.7, 1e-3, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]   # scale, lr, bc1, bc2
+
+    def aw_update(p, g, mu, nu):
+        ops.adamw_update(p, g, mu, nu, *step, **hyper)
+
+    def aw_kernel(p, g, mu, nu):
+        ops.adamw_sumsq(g)
+        aw_update(p, g, mu, nu)
+
+    def aw_plain(p, g, mu, nu):
+        ref.adamw_sumsq(g)
+        ref.adamw_update(p, g, mu, nu, *step, **hyper)
+
+    sq, sq_want = ops.adamw_sumsq(g), ref.adamw_sumsq(g)
+    got, want = [p.clone(), mu.clone(), nu.clone()], [p, mu, nu]
+    ops.adamw_update(got[0], g, got[1], got[2], *step, **hyper)
+    want = [t.clone() for t in want]
+    ref.adamw_update(want[0], g, want[1], want[2], *step, **hyper)
+    torch.cuda.synchronize()
+    sq_err = abs(float(sq) / float(sq_want) - 1)
+    w = want[0].float()
+    diff = (got[0].float() - w).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    ulps = float((diff / (ulp + 1e-8)).max())         # at most 1
+    need(sq_err <= 8e-6 and ulps <= 1
+         and all(_within(a, b, 1e-6) for a, b in zip(got[1:], want[1:])),
+         f"adamw ck: sum of squares err {sq_err}, {ulps} bf16 ulps, mu/nu "
+         f"err {[_err(a, b) for a, b in zip(got[1:], want[1:])]}")
+    max_err = _err(got[0], want[0])
+    del diff, ulp, w, got, want
+    bound, bound_by = cost.bound_ms(*cost.adamw(p.numel(), bf, bf,
+                                                torch.float32))
+    up_bound, _ = cost.bound_ms(*cost.adamw(p.numel(), bf, bf, torch.float32,
+                                            norm=False))
+    rows.append({
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "none: the JAX package leaves its optimizer to XLA "
+                    "(src/repro/train/optimizer.py:96)",
+        "path": "rwkv6-3b train",
+        "shape": {"leaf": "layers.ck", "shape": list(shape),
+                  "dtype": "bfloat16", "moments": "float32", "step": 3,
+                  "sumsq_rel_err": sq_err,
+                  "max_err_in_ulps_beside_1e-8": ulps,
+                  "update_ms": timed(lambda: aw_update(p, g, mu, nu)),
+                  "update_bound_ms": up_bound},
+        "launches": 0, "max_abs_err": max_err,
+        "ms": timed(lambda: aw_kernel(p, g, mu, nu)),
+        "plain_ms": timed(lambda: aw_plain(p, g, mu, nu), 5),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes it: "
+                        "torch._fused_adamw_ keeps the moments in the "
+                        "parameter's dtype and decays the parameter first",
+        "bound_ms": bound, "bound_by": bound_by})
+    trace("adamw", "rwkv6-3b train", lambda: aw_kernel(p, g, mu, nu))
+    del p, g, mu, nu, sq, sq_want
+
     emit({"phase": "kernel_traces", "traces": traces})
     emit({"phase": "kernels", "checks": checks,
           "times": [{k: r[k] for k in ("name", "path", "shape", "ms",
@@ -1628,6 +1707,7 @@ CUDA_NAMES = {
     "rwkv_scan": ("chunk_state", "state_scan", "chunk_out", "rwkv_decode"),
     "rglru_scan": ("rglru_scan_windows", "rglru_scan_steps"),
     "adafactor": ("adafactor_",),
+    "adamw": ("adamw_",),
 }
 BWD_CUDA_PER_CALL = {"flash_attention_bwd": 3, "moe_gmm_bwd": 2,
                      "rwkv_scan_bwd": 4, "rglru_scan_bwd": 1}
@@ -1646,12 +1726,13 @@ BWD_CUDA_PER_CALL = {"flash_attention_bwd": 3, "moe_gmm_bwd": 2,
 TRAIN_CASES = [
     {"arch": "qwen3_0_6b", "optimizer": "adamw", "lr": 5e-4, "B": 8,
      "T": 1024, "checkpoints": True,
-     "per_step": {"flash_attention": 56, "flash_attention_bwd": 28},
+     "per_step": {"flash_attention": 56, "flash_attention_bwd": 28,
+                  "adamw": 13},
      "bwd_routes": {"flash_attention_bwd": "wgmma"},
      "parity": {"B": 2, "T": 1024}},
     {"arch": "rwkv6_3b", "optimizer": "adamw", "lr": 3e-4, "B": 8,
      "T": 1024, "one_batch": True,
-     "per_step": {"rwkv_scan": 64, "rwkv_scan_bwd": 32},
+     "per_step": {"rwkv_scan": 64, "rwkv_scan_bwd": 32, "adamw": 20},
      "bwd_routes": {"rwkv_scan_bwd": "tc"},
      "parity": {"B": 2, "T": 256, "n_layers": 2,
                 "launches": {"rwkv_scan": 4, "rwkv_scan_bwd": 2},
@@ -1817,7 +1898,9 @@ def train_phase(torch, dev, case) -> dict:
           "launches": counts, "kernel_path_s": kernel_s,
           "plain_path_s": plain_s,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    expect(counts, par.get("launches", per_step), "float32 gradient")
+    model_kernels = {k: n for k, n in per_step.items()
+                     if k not in ("adamw", "adafactor")}
+    expect(counts, par.get("launches", model_kernels), "float32 gradient")
     counts32 = counts                 # the float32 gradient check's launches
     need(max(rels) <= 2e-3, f"{cfg.name} train gradients: largest leaf rel "
          f"L2 {max(rels)} > 2e-3")

@@ -18,6 +18,8 @@ Kernels:
                      x (E,C,D) @ w (E,D,F) over the capacity buffers
   rwkv_scan        — K4: the chunked WKV6 recurrence of RWKV6, from a state
   rglru_scan       — K5: the RG-LRU linear recurrence h = a h + b
+  adafactor        — Adafactor's update of one leaf, three passes
+  adamw            — AdamW's update of one leaf, two passes
 """
 
 from . import ops, ref

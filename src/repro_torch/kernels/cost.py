@@ -20,6 +20,9 @@ kernel made faster keeps the same bound:
   K5 ``rglru_scan``        one multiply-add an element (three backward)
   ``adafactor``            16 operations a parameter; its gradient read in
                            each of the update's three passes
+  ``adamw``                19 operations a parameter; its gradient read in
+                           each of the update's two passes (the norm's and
+                           the update's), the moments read and written once
 
 Where the work depends on the data (K1's ``lengths``, K3's ``rows``), a
 count takes the values; without them (``None``) it counts K1 at the full
@@ -261,6 +264,21 @@ def adafactor(Bt: int, R: int, C: int, g_dtype, p_dtype,
                 + 8 * state, "float32")
 
 
+def adamw(n: int, p_dtype, g_dtype, m_dtype, norm: bool = True) -> Cost:
+    """AdamW's update of one leaf of ``n`` parameters: the parameter, the
+    gradient and the moments ``mu`` and ``nu`` (``m_dtype``) read once, the
+    parameter and the moments written once (22 bytes a bf16 parameter with
+    float32 moments), and with ``norm`` the gradient read once more before
+    it for the global norm (2 more); 17 float32 operations a parameter for
+    the update (the clip's scale; the two moments' 3 and 4; the bias
+    corrections, square root, eps and quotient; the weight decay, its sum,
+    the learning rate and difference), 2 for the norm (square, sum)."""
+    p, g, m = (ELEM_BYTES[dtype_name(d)] for d in (p_dtype, g_dtype,
+                                                     m_dtype))
+    return Cost((19 if norm else 17) * n,
+                n * (2 * p + (2 if norm else 1) * g + 4 * m), "float32")
+
+
 # ---------------------------------------------------------------------------
 #  the recorder of fake calls
 # ---------------------------------------------------------------------------
@@ -318,7 +336,7 @@ COUNTS = {"decode_attention": decode_attention,
           "moe_gmm": moe_gmm, "moe_gmm_bwd": moe_gmm_bwd,
           "rwkv_scan": rwkv_scan, "rwkv_scan_bwd": rwkv_scan_bwd,
           "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
-          "adafactor": adafactor}
+          "adafactor": adafactor, "adamw": adamw}
 
 
 def record(name: str, upper_bound: bool = False, **args) -> None:

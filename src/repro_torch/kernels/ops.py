@@ -12,6 +12,7 @@ kernels in interpret mode.
 from __future__ import annotations
 
 from . import adafactor as _adafactor
+from . import adamw as _adamw
 from . import cost
 from . import decode_attention as _decode
 from . import flash_attention as _flash
@@ -22,7 +23,7 @@ from . import rwkv_scan as _rwkv
 
 KERNELS = {"decode_attention": _decode, "flash_attention": _flash,
            "moe_gmm": _gmm, "rwkv_scan": _rwkv, "rglru_scan": _rglru,
-           "adafactor": _adafactor}
+           "adafactor": _adafactor, "adamw": _adamw}
 
 
 def _on(t) -> str:
@@ -101,12 +102,33 @@ def adafactor_update(p, g, vr, vc, stats, scale, decay, lr, eps: float,
                                 wd)
 
 
+def adamw_sumsq(g):
+    """AdamW's first pass over gradient leaf ``g``: its sum of squares,
+    0-d float32."""
+    if _on(g) == "cuda":
+        return _adamw.sumsq(g)
+    return ref.adamw_sumsq(g)
+
+
+def adamw_update(p, g, mu, nu, scale, lr, bc1, bc2, *, b1: float, b2: float,
+                 eps: float, wd: float) -> None:
+    """AdamW's update of leaf ``p`` and its moments ``mu``/``nu`` in place,
+    from the step's 0-d ``scale`` (the clip), ``lr`` and bias corrections
+    ``bc1``/``bc2``."""
+    if _on(p) == "cuda":
+        return _adamw.update(p, g, mu, nu, scale, lr, bc1, bc2, b1=b1, b2=b2,
+                             eps=eps, wd=wd)
+    return ref.adamw_update(p, g, mu, nu, scale, lr, bc1, bc2, b1=b1, b2=b2,
+                            eps=eps, wd=wd)
+
+
 def launch_counts() -> dict[str, int]:
     """Wrapper calls per kernel since the last ``reset_launch_counts``;
     ``<name>_bwd`` counts the backward calls of each kernel in
     ``BACKWARDS`` apart from its forward (K2's backward is three CUDA
     launches, or four with its heads split; K3's two, K4's four, K5's
-    one); ``adafactor`` counts leaves updated, three passes each.
+    one); ``adafactor`` counts leaves updated, three passes each, and
+    ``adamw`` leaves updated, two passes each.
     ``bwd_routes`` of ``flash_attention``, ``moe_gmm`` and
     ``rwkv_scan`` split their backward calls by kernel, and
     ``moe_gmm.routes`` its forward launches."""

@@ -278,3 +278,26 @@ def adafactor_update(p, g, vr, vc, stats, scale, decay, lr, eps: float,
     u.div_(torch.clamp(rms, min=1.0))
     u.add_(p.to(torch.float32, copy=True).mul_(wd)).mul_(lr)
     p.copy_(p.to(torch.float32, copy=True).sub_(u))
+
+
+def adamw_sumsq(g):
+    """AdamW's first pass over a gradient leaf: its sum of squares in
+    float32 (0-d), one term of ``train/optimizer.py::global_norm``."""
+    return torch.sum(torch.square(g.float()))
+
+
+def adamw_update(p, g, mu, nu, scale, lr, bc1, bc2, *, b1: float, b2: float,
+                 eps: float, wd: float) -> None:
+    """AdamW's update of leaf ``p`` and its moments ``mu``/``nu`` in place,
+    in float32, each operation a PyTorch kernel (the arithmetic of
+    ``csrc/adamw.cu``, rounded at the same places): with g' = scale g,
+    mu <- b1 mu + (1 - b1) g', nu <- b2 nu + (1 - b2) g' g', p <- p - lr
+    ((mu / bc1) / (sqrt(nu / bc2) + eps) + wd p)."""
+    g = g.float() * scale
+    m2 = b1 * mu.float() + (1 - b1) * g
+    v2 = b2 * nu.float() + (1 - b2) * g * g
+    step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+    step = step + wd * p.float()
+    p.copy_(p.float() - lr * step)
+    mu.copy_(m2)
+    nu.copy_(v2)

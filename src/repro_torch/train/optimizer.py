@@ -7,15 +7,16 @@ given tensors, under ``torch.no_grad()``, and returns the same trees: the
 in-place update is the port's counterpart of the reference's donated
 buffers.  The arithmetic is the reference's, step for step in float32, so
 one update from the same parameters and gradients gives the same numbers.
-AdamW's clipped float32 gradient and its update's temporaries exist for one
-leaf at a time, so the largest leaf's float32 copies bound its peak memory
-(a full-size model's bf16 gradients are not copied to float32 all at once).
-Adafactor runs in three passes over each leaf (``kernels.ops.adafactor_*``:
-hand-written kernels on the card, ``kernels/ref.py`` on the CPU): the
-first over every gradient gives the global norm and the row and column
-sums of g^2, with the clip's scale^2 taken out of them; the second and
-third update the state and the parameter.  On the card no float32 copy of
-a leaf is made.
+Each optimizer runs in passes over each leaf (``kernels.ops.adamw_*`` and
+``kernels.ops.adafactor_*``: hand-written kernels on the card,
+``kernels/ref.py`` on the CPU), the first over every gradient before the
+global norm is known.  AdamW takes two: the gradient's sum of squares,
+then one fused pass that reads the parameter, the gradient and both
+moments and writes the parameter and the moments.  Adafactor takes three:
+the first gives the global norm and the row and column sums of g^2, with
+the clip's scale^2 taken out of them; the second and third update the
+state and the parameter.  On the card no float32 copy of a leaf is made;
+on the CPU the plain passes copy one leaf at a time.
 The step count, the learning rate and the gradient norm stay 0-d tensors
 on the parameters' device, so a step never waits on the host.
 """
@@ -121,25 +122,21 @@ def _zip(tree, *others) -> list[tuple]:
     return [(tree, *others)]
 
 
-def _adamw(cfg: OptConfig, p, g, m, v, lr, bc1, bc2) -> None:
-    m2 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-    v2 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-    step = (m2 / bc1) / (torch.sqrt(v2 / bc2) + cfg.eps)
-    step = step + cfg.weight_decay * p.float()
-    p.copy_(p.float() - lr * step)
-    m.copy_(m2)
-    v.copy_(v2)
-
-
 @torch.no_grad()
 def apply_updates(cfg: OptConfig, params, grads, state):
     """One optimizer step, written into ``params`` and ``state`` in place.
     Returns (params, state, {"grad_norm", "lr"}) with the same trees.  Each
     gradient is clipped by the global norm (``clip_by_global_norm``'s
-    arithmetic) as its leaf is updated; Adafactor takes the norm from its
-    own first pass over the gradients."""
+    arithmetic) as its leaf is updated; each optimizer takes the norm from
+    its own first pass over the gradients (``global_norm``'s sum, leaf by
+    leaf in the same order, for AdamW)."""
     if cfg.name == "adamw":
-        gnorm = global_norm(grads)
+        # the kernels walk a leaf's storage in order: a gradient laid out
+        # otherwise (a tied embedding's, its head product's transpose) is
+        # copied once, in its own dtype
+        grads = tree_map(lambda g: g.contiguous(), grads)
+        gnorm = torch.sqrt(sum(ops.adamw_sumsq(g)
+                               for g in tree_leaves(grads)))
     else:
         leaves = _zip(params, grads, state["vr"], state["vc"])
         stats = [ops.adafactor_stats(g) for _, g, _, _ in leaves]
@@ -153,7 +150,8 @@ def apply_updates(cfg: OptConfig, params, grads, state):
         bc1 = 1 - cfg.b1 ** count
         bc2 = 1 - cfg.b2 ** count
         for p, g, m, v in _zip(params, grads, state["mu"], state["nu"]):
-            _adamw(cfg, p, g.float() * scale, m, v, lr, bc1, bc2)
+            ops.adamw_update(p, g, m, v, scale, lr, bc1, bc2, b1=cfg.b1,
+                             b2=cfg.b2, eps=cfg.eps, wd=cfg.weight_decay)
     else:
         decay = 1.0 - count ** -0.8
         for (p, g, vr, vc), st in zip(leaves, stats):

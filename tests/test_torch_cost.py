@@ -241,6 +241,15 @@ def _adafactor():
     apply_updates(cfg, params, grads, init_opt_state(cfg, params))
 
 
+def _adamw():
+    """One AdamW step of a stacked bf16 matrix and a float32 vector."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    cfg = OptConfig()
+    params = {"w": _fake(3, 16, 8, dtype=torch.bfloat16), "b": _fake(8)}
+    grads = {"w": _fake(3, 16, 8, dtype=torch.bfloat16), "b": _fake(8)}
+    apply_updates(cfg, params, grads, init_opt_state(cfg, params))
+
+
 BF16 = torch.bfloat16
 FAKE_CALLS = [
     ("decode_attention", _k1,
@@ -270,6 +279,10 @@ FAKE_CALLS = [
      [("adafactor", cost.adafactor(3, 16, 8, BF16, BF16), False),
       ("adafactor", cost.adafactor(1, 1, 8, torch.float32, torch.float32,
                                    factored=False), False)]),
+    ("adamw", _adamw,
+     [("adamw", cost.adamw(384, BF16, BF16, torch.float32), False),
+      ("adamw", cost.adamw(8, torch.float32, torch.float32, torch.float32),
+       False)]),
 ]
 
 
@@ -637,8 +650,12 @@ def test_kernel_and_plain_traces_reconcile(arch, monkeypatch):
     plain path's FLOPs are the kernel path's aten FLOPs plus, call for
     call, the FLOPs of the plain counterparts of the recorded kernels; the
     train step records each kernel's forward twice a layer (remat) and its
-    backward once, and its FLOPs are aten's plus ``cost.py``'s counts."""
+    backward once, then AdamW's update once a leaf, and its FLOPs are
+    aten's plus ``cost.py``'s counts."""
     import importlib
+
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import _zip
 
     cfg = dataclasses.replace(tconfigs.smoke(arch), n_layers=3)
     plain_calls = []
@@ -666,9 +683,12 @@ def test_kernel_and_plain_traces_reconcile(arch, monkeypatch):
 
     from repro_torch.train.optimizer import OptConfig
     train = dryrun.trace_step(cfg, "train", 2, 64, opt=OptConfig())
-    fwd = {k: v["launches"] for k, v in train["kernels"].items()
+    model = {k: v for k, v in train["kernels"].items() if k != "adamw"}
+    leaves = len(_zip(init_params(cfg, device="meta")))
+    assert train["kernels"]["adamw"]["launches"] == leaves
+    fwd = {k: v["launches"] for k, v in model.items()
            if not k.endswith("_bwd")}
-    bwd = {k[:-4]: v["launches"] for k, v in train["kernels"].items()
+    bwd = {k[:-4]: v["launches"] for k, v in model.items()
            if k.endswith("_bwd")}
     assert fwd == {k: 2 * v for k, v in bwd.items()}   # remat: twice
     assert fwd == {k: 2 * v["launches"] for k, v in card["kernels"].items()}

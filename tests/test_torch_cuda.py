@@ -1463,3 +1463,168 @@ def test_cuda_adafactor_step_makes_no_host_sync_and_counts_leaves(cuda):
         _within_ulp(params[k].cpu(), plain[k])
         torch.testing.assert_close(state["vr"][k].cpu(), pstate["vr"][k],
                                    rtol=1e-5, atol=1e-30)
+
+
+# AdamW's leaf kinds: (shape, leaf dtype, gradient dtype, moment dtype,
+# offset): a stacked bf16 matrix, a float32 vector (rwkv6's w0 and u), an
+# odd length (n % 8 = 3: the scalar tail), bf16 moments, a float32
+# gradient of a bf16 leaf (microbatches accumulate in float32), and a leaf
+# that starts 2 bytes past a 16-byte boundary (one element at a time)
+ADAMW_LEAVES = {
+    "bf16_stacked": ((4, 256, 384), "bfloat16", "bfloat16", "float32", 0),
+    "f32_vector": ((8192,), "float32", "float32", "float32", 0),
+    "odd": ((3, 37, 101), "bfloat16", "bfloat16", "float32", 0),
+    "bf16_moments": ((4, 128, 96), "bfloat16", "bfloat16", "bfloat16", 0),
+    "f32_grad": ((4, 96, 200), "bfloat16", "float32", "float32", 0),
+    "unaligned": ((5, 1000), "bfloat16", "bfloat16", "float32", 1),
+}
+
+
+def _adamw_plain_step(cfg, params, grads, state, gnorm):
+    """``apply_updates``' AdamW branch through ``ref``'s passes on the card,
+    at the global norm ``gnorm``: the kernel side's, so that both sides
+    clip by the same scale and the update is compared alone."""
+    from repro_torch.train.optimizer import _zip, schedule
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    state["count"] += 1
+    count = state["count"].to(torch.float32)
+    lr = schedule(cfg, count)
+    bc1, bc2 = 1 - cfg.b1 ** count, 1 - cfg.b2 ** count
+    for p, g, m, v in _zip(params, grads, state["mu"], state["nu"]):
+        ref.adamw_update(p, g, m, v, scale, lr, bc1, bc2, b1=cfg.b1,
+                         b2=cfg.b2, eps=cfg.eps, wd=cfg.weight_decay)
+
+
+def _offset_leaf(shape, dtype, offset, cuda, gen, std):
+    """A contiguous leaf of ``shape`` whose storage starts ``offset``
+    elements into a buffer."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.randn(n + offset, generator=gen, device=cuda) * std
+    return buf.to(dtype)[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ADAMW_LEAVES))
+def test_cuda_adamw_matches_plain(cuda, kind):
+    """Three ``apply_updates`` steps of one leaf through the kernels (the
+    second above the clipping norm) against ``ref``'s passes on the card at
+    the same scale: the gradient norm within 4e-6 of ``ref.adamw_sumsq``'s,
+    the parameter within one ulp of its dtype, mu and nu within 1e-6."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    from repro_torch.train.optimizer import _zip
+    shape, dtype, gdtype, mdt, offset = ADAMW_LEAVES[kind]
+    dt, gdt = getattr(torch, dtype), getattr(torch, gdtype)
+    cfg = OptConfig(lr=1e-2, warmup=2, decay_steps=5, moment_dtype=mdt)
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = {"w": _offset_leaf(shape, dt, offset, cuda, gen, 0.05)}
+    plain = {"w": params["w"].clone()}
+    state, pstate = init_opt_state(cfg, params), init_opt_state(cfg, plain)
+    if offset:
+        for key in ("mu", "nu"):
+            state[key]["w"] = _offset_leaf(shape, getattr(torch, mdt), offset,
+                                           cuda, gen, 0.0)
+    before = params["w"].clone()
+    for step, norm in enumerate((0.1, 30.0, 0.5)):   # about the norms
+        grads = {"w": _offset_leaf(shape, gdt, offset, cuda, gen,
+                                   norm / before.numel() ** 0.5)}
+        ops.reset_launch_counts()
+        _, _, m = apply_updates(cfg, params, grads, state)
+        assert ops.launch_counts()["adamw"] == 1
+        want = torch.sqrt(ref.adamw_sumsq(grads["w"]))
+        torch.testing.assert_close(m["grad_norm"], want, rtol=4e-6, atol=0)
+        assert (float(m["grad_norm"]) > cfg.clip_norm) == (step == 1)
+        _adamw_plain_step(cfg, plain, grads, pstate, m["grad_norm"])
+        torch.cuda.synchronize()
+        _within_ulp(params["w"], plain["w"])
+        for (a, b) in _zip(state["mu"], pstate["mu"]) + _zip(
+                state["nu"], pstate["nu"]):
+            torch.testing.assert_close(a.float(), b.float(), rtol=1e-6,
+                                       atol=0)
+        assert not torch.equal(params["w"], before), f"step {step}"
+        before = params["w"].clone()
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_full_size_channel_mix_leaf(cuda):
+    """rwkv6-3b's stacked ``ck`` (32, 2560, 8960) bf16 with float32
+    moments: 734 M elements, 2.9 GB a moment, so any 32-bit byte offset
+    shows.  One ``apply_updates`` step through the kernels against ``ref``'s
+    passes at the same scale: the norm within 4e-6, the parameter within
+    one bf16 ulp, the moments within 1e-6; the step allocates under 1% of
+    the leaf's float32 size beyond its inputs."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    shape = (32, 2560, 8960)
+    cfg = OptConfig(lr=1e-3, warmup=1)
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = torch.empty(shape, dtype=torch.bfloat16, device=cuda)
+    g = torch.empty_like(p)
+    for i in range(shape[0]):                  # no float32 copy of the leaf
+        p[i] = torch.randn(shape[1:], generator=gen, device=cuda) * 0.02
+        g[i] = torch.randn(shape[1:], generator=gen, device=cuda) * 1e-4
+    p0 = p.clone()
+    state = init_opt_state(cfg, {"w": p})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    _, _, m = apply_updates(cfg, {"w": p}, {"w": g}, state)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < 0.01 * 4 * p.numel(), extra
+    assert ops.launch_counts()["adamw"] == 1
+    torch.testing.assert_close(m["grad_norm"],
+                               torch.sqrt(ref.adamw_sumsq(g)), rtol=4e-6,
+                               atol=0)
+    pstate = init_opt_state(cfg, {"w": p0})
+    _adamw_plain_step(cfg, {"w": p0}, {"w": g}, pstate, m["grad_norm"])
+    torch.cuda.synchronize()
+    for i in range(shape[0]):
+        _within_ulp(p[i], p0[i])
+        for key in ("mu", "nu"):
+            torch.testing.assert_close(state[key]["w"][i],
+                                       pstate[key]["w"][i], rtol=1e-6,
+                                       atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_step_makes_no_host_sync_and_counts_leaves(cuda):
+    """One ``apply_updates`` step of a small tree (bf16 leaves, a float32
+    one, a gradient laid out as a transpose, as a tied embedding's is)
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing waits on the
+    host; ``launch_counts()["adamw"]`` is the number of leaves; the
+    parameters are the CPU path's within one ulp, the norm within 4e-6."""
+    from repro_torch.train import OptConfig, apply_updates, init_opt_state
+    cfg = OptConfig(lr=1e-3, warmup=1)
+    gen = torch.Generator(cuda).manual_seed(1)
+    shapes = {"embed": ((600, 64), torch.bfloat16),
+              "norm": ((3, 64), torch.bfloat16),
+              "u": ((3, 4, 16), torch.float32),
+              "w": ((3, 64, 96), torch.bfloat16)}
+    params = {k: (torch.randn(s, generator=gen, device=cuda) * 0.05).to(d)
+              for k, (s, d) in shapes.items()}
+    grads = {k: torch.randn(s, generator=gen, device=cuda).to(d)
+             for k, (s, d) in shapes.items()}
+    grads["embed"] = grads["embed"].t().contiguous().t()
+    assert not grads["embed"].is_contiguous()
+    warm = {k: v.clone() for k, v in params.items()}
+    apply_updates(cfg, warm, grads, init_opt_state(cfg, warm))  # the build
+    plain = {k: v.cpu() for k, v in params.items()}
+    state, pstate = init_opt_state(cfg, params), init_opt_state(cfg, plain)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, m = apply_updates(cfg, params, grads, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ops.launch_counts()["adamw"] == len(params)
+    _, _, pm = apply_updates(cfg, plain, {k: v.cpu() for k, v in
+                                          grads.items()}, pstate)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m["grad_norm"].cpu(), pm["grad_norm"],
+                               rtol=4e-6, atol=0)
+    for k in params:
+        _within_ulp(params[k].cpu(), plain[k])
